@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of `repro` (Distributed Path Compression, Will et al.
+2024): Morse-Smale segmentations and connected components of structured
+grids by pointer doubling.
+
+The package mirrors `repro`'s module names, so each JAX module has its
+counterpart here at the same relative path.  It imports torch and numpy,
+never jax and never `repro`.  Entry points (`topology.submit`,
+`data.perlin_noise`) run on ``"cuda"`` unless the caller passes
+``device="cpu"``; without CUDA they raise instead of falling back.
+
+The fused block-local phase (`kernels.ops.fused_local_phase`) runs a CUDA
+C++ kernel for Hopper on CUDA tensors and its plain PyTorch version on CPU
+tensors.  Labels are bit-identical to the JAX package on the same inputs.
+"""
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,53 @@
+"""Arrays crossing between the JAX package and the port.
+
+The system has no weights: what crosses is a request payload (numpy, or a
+JAX array read back as numpy) and the result arrays.  JAX runs with x64 off
+by default, so every payload it receives is canonicalised to 32 bits.  The
+port applies the same rule, or a float64 field would be ordered in float64
+here and in float32 by JAX, and ties would differ.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+
+# JAX's x32 canonicalisation (jax.dtypes.canonicalize_dtype, x64 off)
+_X32 = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+        np.dtype(np.uint64): np.uint32}
+_X32_TORCH = {torch.float64: torch.float32, torch.int64: torch.int32,
+              torch.uint64: torch.uint32}
+
+
+def canonical_tensor(a, device=None) -> torch.Tensor:
+    """`a` (numpy, anything numpy can read, or a tensor) as a tensor on
+    `device` (default ``"cuda"``), with 64-bit dtypes cut to 32 bits as JAX
+    does with x64 off: float64->float32, int64->int32, uint64->uint32.
+    bool and 32-bit-or-narrower dtypes are kept."""
+    dev = resolve_device(device)
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=_X32_TORCH.get(a.dtype, a.dtype))
+    arr = np.asarray(a)
+    arr = np.ascontiguousarray(arr.astype(_X32.get(arr.dtype, arr.dtype),
+                                          copy=False))
+    if not arr.flags.writeable:      # e.g. a JAX array read back as numpy
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(dev)
+
+
+def to_numpy(result):
+    """A tensor -> numpy array; a NamedTuple (`MSSegmentation`, `CCResult`)
+    or a dataclass (`topology.TopologyResult`) -> the same type with its
+    tensor fields as numpy arrays; other values pass unchanged."""
+    if isinstance(result, torch.Tensor):
+        return result.detach().cpu().numpy()
+    if isinstance(result, tuple) and hasattr(result, "_fields"):
+        return type(result)(*(to_numpy(v) for v in result))
+    if dataclasses.is_dataclass(result) and not isinstance(result, type):
+        return dataclasses.replace(result, **{
+            f.name: to_numpy(getattr(result, f.name))
+            for f in dataclasses.fields(result) if f.init})
+    return result

@@ -1,0 +1,110 @@
+"""Wrapper of the CUDA kernel for the fused block-local phase
+(`csrc/fused_local_phase.cu`; replaces the Pallas TPU kernel
+`repro/kernels/fused_local_phase.py::fused_local_phase`).
+
+Per `block_x`-plane x-slab of an (X, Y, Z) field the kernel computes the
+pointer init (steepest argmax, ``mode="manifold"``, or largest masked
+neighbor id, ``mode="cc"``), applies the optional `self_mask` override, and
+runs pointer doubling confined to the slab until it converges.  It returns
+the pointers and the round count of the TPU kernel, bit for bit.  The plain
+version is `ref.fused_local_phase_ref`; `ops.fused_local_phase` dispatches
+between the two by the tensor's device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.steepest import id_dtype_for, neighbor_offsets
+from . import _build
+from .ref import max_saturation_rounds
+
+KERNEL_CONNECTIVITIES = (6, 14, 18, 26)
+_MODES = {"manifold": 0, "cc": 1}
+
+# launches of the kernel, by mode; only `fused_local_phase` below adds to it
+launches = {"manifold": 0, "cc": 0}
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+
+def _entry(id_dtype):
+    lib = _build.load("fused_local_phase")
+    fn = getattr(lib, "fused_local_phase_i32" if id_dtype == torch.int32
+                 else "fused_local_phase_i64")
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    lib.fused_local_phase_error_string.argtypes = [ctypes.c_int]
+    lib.fused_local_phase_error_string.restype = ctypes.c_char_p
+    return fn, lib.fused_local_phase_error_string
+
+
+def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
+                      mode: str = "manifold", self_mask=None,
+                      block_x: int = 8, id_dtype=None):
+    """Launch the CUDA kernel on `field`'s device and current stream.
+
+    field: contiguous (X, Y, Z) CUDA tensor, int32 order (manifold) or bool
+    mask (cc).  self_mask: None or a bool tensor of the same shape.  Returns
+    ((X, Y, Z) pointers of `id_dtype`, default int32 unless n >= 2**31;
+    rounds as an int).  Raises on anything the kernel does not take and on
+    any CUDA error the launch reports.
+    """
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'manifold' or 'cc', got {mode!r}")
+    if field.ndim != 3:
+        raise ValueError(f"fused_local_phase is a 3-D x-slab kernel; got a "
+                         f"{field.ndim}-D field of shape {tuple(field.shape)}")
+    if connectivity not in KERNEL_CONNECTIVITIES:
+        raise ValueError(f"fused_local_phase supports 3-D connectivities "
+                         f"{KERNEL_CONNECTIVITIES}, got {connectivity}")
+    if block_x < 1:
+        raise ValueError(f"block_x must be >= 1, got {block_x}")
+    _check(field, "field", torch.int32 if mode == "manifold" else torch.bool,
+           field.shape)
+    if self_mask is not None:
+        _check(self_mask, "self_mask", torch.bool, field.shape)
+        if self_mask.device != field.device:
+            raise ValueError("self_mask must be on the field's device")
+    x, y, z = field.shape
+    if id_dtype is None:
+        id_dtype = id_dtype_for(field.numel())
+    if id_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"id_dtype must be int32 or int64, got {id_dtype}")
+    if id_dtype == torch.int32 and field.numel() >= 2**31:
+        raise ValueError("int32 ids cannot address 2**31 or more vertices")
+
+    out = torch.empty(field.shape, dtype=id_dtype, device=field.device)
+    scratch = torch.empty_like(out)
+    flag = torch.empty(1, dtype=torch.int32, device=field.device)
+    offs = [c for off in neighbor_offsets(3, connectivity) for c in off]
+    offsets = (ctypes.c_int * len(offs))(*offs)
+    rounds = ctypes.c_int(0)
+    fn, error_string = _entry(id_dtype)
+    with torch.cuda.device(field.device):
+        stream = torch.cuda.current_stream(field.device).cuda_stream
+        err = fn(field.data_ptr(),
+                 None if self_mask is None else self_mask.data_ptr(),
+                 out.data_ptr(), scratch.data_ptr(), flag.data_ptr(),
+                 _MODES[mode], x, y, z, block_x, offsets,
+                 len(offs) // 3, max_saturation_rounds(block_x * y * z),
+                 stream, ctypes.byref(rounds))
+    if err:
+        raise RuntimeError(f"fused_local_phase CUDA error {err}: "
+                           f"{error_string(err).decode()}")
+    launches[mode] += 1
+    return out, rounds.value
