@@ -20,7 +20,16 @@ seconds:
      card, scipy.ndimage.label on the host, extrema, segment counts;
   6. numbers: warm query times, kernel and plain times beside the bound,
      peak device memory, rounds and counts, and a torch.profiler breakdown
-     of one kernel launch and of one query of each kind.
+     of one kernel launch and of one query of each kind;
+  7. the four stand-alone kernels behind `repro_torch.kernels.ops`
+     (`steepest_neighbor`, `block_pathcompress`, `embedding_bag` ->
+     `segment_bag`, `flash_attention`): each kernel against its plain
+     version on ragged cases and at full size (the grid_512 order field and
+     its steepest pointers; BST's multihot table at the serve_bulk batch;
+     llama3.2-1b attention widths at 32k, batch cut from 32 to 1), then the
+     `ops` path with every launch counter set to 0 just before and read
+     just after, its results checked against the compared ones, and the
+     kernel, plain, bound and library times.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -39,7 +48,22 @@ SEED = 42                      # Perlin seed of the main path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores,
                                # taken for the kernel's 32-bit compares
+FLOPS_PER_S = {"bfloat16": 989e12,   # dense bf16 tensor-core rate
+               "float32": 67e12}     # fp32 outside the tensor cores
 RAGGED = (97, 61, 43)
+# BST (configs/bst.py): two multihot fields of 500,000 rows, embed_dim 32,
+# 16 ids a bag; serve_bulk's batch
+BAG_V, BAG_D, BAG_B, BAG_L = 2 * 500_000, 32, 262_144, 16
+# llama3.2-1b (configs/llama3_2_1b.py) at prefill_32k, batch cut 32 -> 1
+ATTN_B, ATTN_H, ATTN_HKV, ATTN_D, ATTN_S = 1, 32, 8, 64, 32_768
+TOL = {"bfloat16": {"bag": 3e-2, "attn": 2e-2},
+       "float32": {"bag": 1e-5, "attn": 2e-5}}
+# Full-size bf16 attention (rtol, atol): a row that sees n random keys has
+# outputs of about sqrt(e / n), ~0.013 at n = 16k, so 2e-2 would pass a
+# kernel that dropped key tiles or wrote zeros.  Kernel and plain version
+# both sum in fp32 and round once to bf16, so they may differ by one bf16
+# ulp (at most 2^-7 of the value): rtol 8e-3, plus atol 2e-3 near zero.
+ATTN_BF16_FULL = (8e-3, 2e-3)
 
 
 def phase(name, t0):
@@ -76,6 +100,11 @@ def profile(fn, label, top=6):
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
+        # a later profiler session can drop its first device activity (the
+        # one kernel of a window went unseen): a short spin kernel goes
+        # first, outside the timed window and the rows
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -85,7 +114,7 @@ def profile(fn, label, top=6):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
     busy = sum(r[1] for r in rows)
     if not rows:
         print(f"  profile {label}: wall {wall:.3f} ms, device time not "
@@ -95,6 +124,263 @@ def profile(fn, label, top=6):
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+
+
+def standalone_kernels(order, conn, smi):
+    """Phase 7: the four stand-alone kernels behind `repro_torch.kernels.ops`
+    (`order` is the grid_512 order field of the main path).  Returns their
+    entries of the kernels JSON line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import block_pathcompress as bpc_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import fused_local_phase as kmod
+    from repro_torch.kernels import segment_bag as bag_mod
+    from repro_torch.kernels import steepest_neighbor as steep_mod
+
+    dev = order.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 matmuls
+    err = {}
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        check(got.dtype == want.dtype and got.shape == want.shape and e == 0,
+              f"kernel == plain: {what} (max err {e})")
+        return e
+
+    def close(got, want, tol, what):
+        """tol: one number for rtol and atol, or an (rtol, atol) pair."""
+        torch.cuda.synchronize()
+        rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+        e = float((got.float() - want.float()).abs().max())
+        ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+        check(got.dtype == want.dtype and got.shape == want.shape and ok
+              and not torch.isnan(got).any(),
+              f"kernel == plain within rtol {rtol}, atol {atol}: {what} "
+              f"(max abs err {e})")
+        return e
+
+    # 7a. kernel vs plain: ragged cases, then full size --------------------
+    t0 = time.perf_counter()
+    n_cases = 0
+    n_rag = int(np.prod(RAGGED))
+    rag_order = torch.randperm(n_rag, generator=gen, device=dev).to(
+        torch.int32).reshape(RAGGED)
+    rag_ties = torch.randint(0, 4, RAGGED, generator=gen, device=dev,
+                             dtype=torch.int32)
+    for c in (6, 14, 18, 26):
+        for f in (rag_order, rag_ties):
+            same(steep_mod.steepest_neighbor(f, c),
+                 ref.steepest_neighbor_ref(f, c),
+                 f"steepest_neighbor {RAGGED} conn {c}")
+            n_cases += 1
+    err["steepest_neighbor"] = same(
+        steep_mod.steepest_neighbor(order, conn),
+        ref.steepest_neighbor_ref(order, conn),
+        f"steepest_neighbor grid_512 conn {conn}")
+    ptr = ref.steepest_neighbor_ref(order, conn).reshape(-1)
+    rag_ptr = ref.steepest_neighbor_ref(rag_order, 6).reshape(-1)
+    for d, block, rounds in ((rag_ptr, 4096, 4), (rag_ptr, 1000, 3),
+                             (rag_ptr, 65_536, 4), (ptr, 1 << 20, 2)):
+        config = bpc_mod.configuration(
+            ref.snapped_block(d.numel(), block), d.dtype)
+        same(bpc_mod.block_pathcompress(d, rounds, block),
+             ref.block_pathcompress_kernel_ref(d, rounds, block),
+             f"block_pathcompress n {d.numel()} block {block} rounds "
+             f"{rounds} ({config})")
+        n_cases += 1
+    err["block_pathcompress"] = same(
+        bpc_mod.block_pathcompress(ptr, 4, 4096),
+        ref.block_pathcompress_kernel_ref(ptr, 4, 4096),
+        "block_pathcompress grid_512 pointers, rounds 4, block 4096")
+
+    table = {"float32": torch.randn(BAG_V, BAG_D, generator=gen,
+                                    device=dev)}
+    table["bfloat16"] = table["float32"].to(torch.bfloat16)
+    ids = torch.randint(-1, BAG_V, (BAG_B, BAG_L), generator=gen,
+                        device=dev).to(torch.int32)
+    over = torch.randint(0, ids.numel(), (64,), generator=gen, device=dev)
+    ids.view(-1)[over] = BAG_V + torch.arange(64, device=dev,
+                                              dtype=torch.int32)
+    rag_ids = torch.randint(-3, 1005, (97, 61), generator=gen,
+                            device=dev).to(torch.int32)
+    for dt in ("float32", "bfloat16"):
+        close(bag_mod.segment_bag(table[dt][:1000, :], rag_ids),
+              ref.segment_bag_ref(table[dt][:1000, :], rag_ids),
+              TOL[dt]["bag"], f"segment_bag V 1000, (97, 61) ids, {dt}")
+        err[f"segment_bag/{dt}"] = close(
+            bag_mod.segment_bag(table[dt], ids),
+            ref.segment_bag_ref(table[dt], ids), TOL[dt]["bag"],
+            f"segment_bag V {BAG_V} D {BAG_D} ({BAG_B}, {BAG_L}) ids, {dt}")
+        n_cases += 1
+
+    def qkv(b, h, hkv, sq, sk, d, dt):
+        shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+        return [torch.randn(s, generator=gen, device=dev).to(getattr(
+            torch, dt)) for s in shapes]
+
+    attn = {}
+    attn_out = {}
+    for dt in ("bfloat16", "float32"):
+        for shape in ((1, 4, 2, 256, 128, 64), (1, 4, 2, 256, 256, 112)):
+            q, k, v = qkv(*shape, dt)      # Sk < Sq: 128 rows see no key
+            close(flash_mod.flash_attention(q, k, v, causal=True),
+                  ref.flash_attention_kernel_ref(q, k, v, causal=True),
+                  TOL[dt]["attn"], f"flash_attention {shape} causal {dt}")
+            n_cases += 1
+        attn[dt] = qkv(ATTN_B, ATTN_H, ATTN_HKV, ATTN_S, ATTN_S, ATTN_D, dt)
+        attn_out[dt] = flash_mod.flash_attention(*attn[dt], causal=True)
+        err[f"flash_attention/{dt}"] = close(
+            attn_out[dt],
+            ref.flash_attention_kernel_ref(*attn[dt], causal=True),
+            ATTN_BF16_FULL if dt == "bfloat16" else TOL[dt]["attn"],
+            f"flash_attention llama3.2-1b 32k causal {dt}")
+    print(f"  {n_cases} ragged/small cases and 6 full-size cases: kernel == "
+          f"plain (pointers exactly; bags within 1e-5 f32 / 3e-2 bf16; "
+          f"attention within 2e-5 f32, bf16 2e-2 small and rtol "
+          f"{ATTN_BF16_FULL[0]} / atol {ATTN_BF16_FULL[1]} at full size); "
+          f"max errors {err}")
+    phase("stand-alone kernels vs plain", t0)
+
+    # 7b. the ops path, counts set to 0 just before and read just after ---
+    t0 = time.perf_counter()
+    mods = (kmod, steep_mod, bpc_mod, bag_mod, flash_mod)
+    for mod in mods:
+        for key in mod.launches:
+            mod.launches[key] = 0
+    got = {"steepest": ops.steepest_neighbor(order, conn)}
+    got["bpc"] = ops.block_pathcompress(got["steepest"].reshape(-1), 4, 4096)
+    for dt in ("float32", "bfloat16"):
+        got[f"bag/{dt}"] = ops.embedding_bag(table[dt], ids)
+    for dt in ("bfloat16", "float32"):
+        got[f"attn/{dt}"] = ops.flash_attention(*attn[dt], causal=True)
+    torch.cuda.synchronize()
+    launches = {mod.__name__.rsplit(".", 1)[1]: dict(mod.launches)
+                for mod in mods}
+    print(f"  kernel launches on the ops path: {launches}")
+    check(launches["steepest_neighbor"][conn] == 1
+          and launches["block_pathcompress"]["shared"] == 1
+          and launches["segment_bag"] == {"float32": 1, "bfloat16": 1}
+          and launches["flash_attention"] == {"float32": 1, "bfloat16": 1},
+          "the ops path launched each stand-alone kernel once")
+    check(torch.equal(got["steepest"].reshape(-1), ptr)
+          and torch.equal(got["bpc"], ref.block_pathcompress_kernel_ref(
+              ptr, 4, 4096)), "ops pointers == the plain versions'")
+    for dt in ("float32", "bfloat16"):
+        check(torch.equal(got[f"bag/{dt}"], bag_mod.segment_bag(table[dt],
+                                                                ids))
+              and torch.equal(got[f"attn/{dt}"], attn_out[dt]),
+              f"ops bags and attention ({dt}) == the compared kernel "
+              "results (both kernels are deterministic)")
+    n = order.numel()
+    in_chain = int((got["bpc"] != ptr).sum())
+    print(f"  grid_512 pointers: {n} ids, {in_chain} moved by 4 tile rounds")
+    del got
+    phase("ops path", t0)
+
+    # 7c. numbers ---------------------------------------------------------
+    t0 = time.perf_counter()
+    kernels = []
+
+    def entry(name, src, line, launched, e, kernel, plain, nbytes, ops_,
+              peak, library, **extra):
+        k_ms, p_ms = event_ms(kernel, 5), event_ms(plain, 3)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops_ / peak * 1e3
+        lib_ms = None if library is None else event_ms(library, 5)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{src}.py:{line}",
+            "launches": launched, "max_abs_err": e, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": lib_ms, **extra})
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        print(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{max(by_bytes, by_ops):.3f} ms "
+              f"({kernels[-1]['bound_by']}), library {lib} ({smi})")
+
+    entry("steepest_neighbor", "steepest_neighbor", 90,
+          launches["steepest_neighbor"][conn], err["steepest_neighbor"],
+          lambda: ops.steepest_neighbor(order, conn),
+          lambda: ref.steepest_neighbor_ref(order, conn),
+          n * (4 + 4), n * conn, INT_OPS_PER_S, None)
+    print("    library: none - no single PyTorch call computes a strict-> "
+          "stencil argmax")
+    global_ms = event_ms(lambda: ops.block_pathcompress(ptr, 4, 1 << 22), 5)
+    entry("block_pathcompress", "block_pathcompress", 57,
+          launches["block_pathcompress"]["shared"],
+          err["block_pathcompress"],
+          lambda: ops.block_pathcompress(ptr, 4, 4096),
+          lambda: ref.block_pathcompress_kernel_ref(ptr, 4, 4096),
+          n * (4 + 4), n * 4, INT_OPS_PER_S, None,
+          global_config_block_4M_ms=global_ms)
+    print(f"    library: none - no single PyTorch call runs tile-confined "
+          f"doubling; the global configuration (block 2^22) takes "
+          f"{global_ms:.3f} ms")
+    valid = (ids >= 0) & (ids < BAG_V)
+    rows = torch.unique(ids[valid]).numel()
+    # the library call: in-range ids only (F.embedding_bag refuses ids >= V)
+    lib_ids = torch.where(ids < BAG_V, ids, -1).long()
+    lib_w = {dt: (lib_ids >= 0).to(table[dt].dtype) for dt in table}
+    for dt in ("float32", "bfloat16"):
+        size = table[dt].element_size()
+        entry(f"segment_bag/{dt}", "segment_bag", 62,
+              launches["segment_bag"][dt], err[f"segment_bag/{dt}"],
+              lambda: ops.embedding_bag(table[dt], ids),
+              lambda: ref.segment_bag_ref(table[dt], ids),
+              ids.numel() * 4 + rows * BAG_D * size + BAG_B * BAG_D * size,
+              int(valid.sum()) * BAG_D, INT_OPS_PER_S,
+              lambda: F.embedding_bag(lib_ids.clamp(min=0), table[dt],
+                                      per_sample_weights=lib_w[dt],
+                                      mode="sum"),
+              distinct_rows=rows)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    pairs = ATTN_S * (ATTN_S + 1) // 2           # visible (q, k) pairs
+    for dt in ("bfloat16", "float32"):
+        q, k, v = attn[dt]
+        size = q.element_size()
+
+        def sdpa():
+            # SDPA's causal mask is top-left aligned: equal only at Sq == Sk.
+            # Without the math backend, which would hold the 32k x 32k
+            # scores (137 GB); GQA runs only on the flash backend (fp16/bf16)
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+
+        lib = sdpa if dt == "bfloat16" else None
+        entry(f"flash_attention/{dt}", "flash_attention", 87,
+              launches["flash_attention"][dt], err[f"flash_attention/{dt}"],
+              lambda: ops.flash_attention(q, k, v, causal=True),
+              lambda: ref.flash_attention_kernel_ref(q, k, v, causal=True),
+              (2 * q.numel() + 2 * k.numel()) * size,
+              4 * ATTN_B * ATTN_H * ATTN_D * pairs, FLOPS_PER_S[dt], lib)
+        if lib is None:
+            print("    library: none - SDPA runs GQA only on its flash "
+                  "backend (fp16/bf16) and its math backend, which would "
+                  "hold the 32k x 32k fp32 scores (137 GB)")
+        else:
+            e = float((sdpa().float() - attn_out[dt].float()).abs().max())
+            print(f"    SDPA vs kernel: max abs difference {e} (not a "
+                  "check: SDPA rounds P to bf16 before PV)")
+
+    def pointer_and_bag_calls():
+        d = ops.steepest_neighbor(order, conn)
+        ops.block_pathcompress(d.reshape(-1), 4, 4096)
+        for dt in ("float32", "bfloat16"):
+            ops.embedding_bag(table[dt], ids)
+
+    profile(pointer_and_bag_calls, "ops path: steepest_neighbor + "
+            "block_pathcompress + embedding_bag f32 and bf16")
+    profile(lambda: ops.flash_attention(*attn["bfloat16"], causal=True),
+            "ops path: flash_attention bf16")
+    phase("stand-alone numbers", t0)
+    return kernels
 
 
 def main():
@@ -323,6 +609,9 @@ def main():
     for k, v in numbers.items():
         print(f"  {k}: {v}")
     phase("numbers", t0)
+
+    # 7. the four stand-alone kernels behind repro_torch.kernels.ops --------
+    kernels += standalone_kernels(order, conn, smi)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,11 @@ never jax and never `repro`.  Entry points (`topology.submit`,
 `data.perlin_noise`) run on ``"cuda"`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
 
-The fused block-local phase (`kernels.ops.fused_local_phase`) runs a CUDA
-C++ kernel for Hopper on CUDA tensors and its plain PyTorch version on CPU
-tensors.  Labels are bit-identical to the JAX package on the same inputs.
+Every Pallas kernel of `repro` has a CUDA C++ counterpart for Hopper behind
+`kernels.ops` (`fused_local_phase`, `steepest_neighbor`,
+`block_pathcompress`, `flash_attention`, `embedding_bag`): it runs on CUDA
+tensors, and its plain PyTorch version on CPU tensors.  Labels are
+bit-identical to the JAX package on the same inputs.
 """
 from ._device import resolve_device
 

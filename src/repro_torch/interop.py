@@ -5,6 +5,13 @@ JAX array read back as numpy) and the result arrays.  JAX runs with x64 off
 by default, so every payload it receives is canonicalised to 32 bits.  The
 port applies the same rule, or a float64 field would be ordered in float64
 here and in float32 by JAX, and ties would differ.
+
+bfloat16 crosses bit for bit.  numpy has no bfloat16 of its own: a JAX bf16
+array reads back as numpy with `ml_dtypes`' bfloat16 dtype, which
+`torch.from_numpy` refuses, and the card's machine has neither jax nor
+`ml_dtypes`.  So a numpy dtype named "bfloat16" is carried as its uint16
+bits, without importing `ml_dtypes`, and `to_numpy` gives a bfloat16
+tensor back as those uint16 bits.
 """
 from __future__ import annotations
 
@@ -26,11 +33,15 @@ def canonical_tensor(a, device=None) -> torch.Tensor:
     """`a` (numpy, anything numpy can read, or a tensor) as a tensor on
     `device` (default ``"cuda"``), with 64-bit dtypes cut to 32 bits as JAX
     does with x64 off: float64->float32, int64->int32, uint64->uint32.
-    bool and 32-bit-or-narrower dtypes are kept."""
+    bool and 32-bit-or-narrower dtypes are kept; bfloat16 (a numpy dtype of
+    that name) becomes torch.bfloat16 with the same bits."""
     dev = resolve_device(device)
     if isinstance(a, torch.Tensor):
         return a.to(device=dev, dtype=_X32_TORCH.get(a.dtype, a.dtype))
     arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr, order="C").view(np.int16)   # a writable copy
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
     arr = np.ascontiguousarray(arr.astype(_X32.get(arr.dtype, arr.dtype),
                                           copy=False))
     if not arr.flags.writeable:      # e.g. a JAX array read back as numpy
@@ -39,11 +50,15 @@ def canonical_tensor(a, device=None) -> torch.Tensor:
 
 
 def to_numpy(result):
-    """A tensor -> numpy array; a NamedTuple (`MSSegmentation`, `CCResult`)
-    or a dataclass (`topology.TopologyResult`) -> the same type with its
-    tensor fields as numpy arrays; other values pass unchanged."""
+    """A tensor -> numpy array (a bfloat16 tensor -> its uint16 bits); a
+    NamedTuple (`MSSegmentation`, `CCResult`) or a dataclass
+    (`topology.TopologyResult`) -> the same type with its tensor fields as
+    numpy arrays; other values pass unchanged."""
     if isinstance(result, torch.Tensor):
-        return result.detach().cpu().numpy()
+        t = result.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     if isinstance(result, tuple) and hasattr(result, "_fields"):
         return type(result)(*(to_numpy(v) for v in result))
     if dataclasses.is_dataclass(result) and not isinstance(result, type):

@@ -1,9 +1,10 @@
 """Builds the port's CUDA C++ sources with nvcc at first use and loads them
-with ctypes.
+with ctypes, and holds the checks every kernel wrapper makes around a launch.
 
 Each source under `csrc/` becomes one shared library with a plain C
-interface in `<checkout>/build/kernels/`, named by a hash of its source and
-flags so that an edited source is rebuilt.  nvcc runs only when a kernel is
+interface in `<checkout>/build/kernels/`, named by a hash of its source,
+the shared headers (`csrc/*.cuh`) and the flags, so that an edited source
+or header is rebuilt.  nvcc runs only when a kernel is
 first needed on a CUDA tensor, never at import; `build()` starts one nvcc
 per source, all at once.  ptxas's register and spill report for each
 library is kept beside it as `<library>.log`.
@@ -17,8 +18,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fused_local_phase": _CSRC / "fused_local_phase.cu"}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in (
+    "fused_local_phase", "steepest_neighbor", "block_pathcompress",
+    "segment_bag", "flash_attention")}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,9 +45,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -87,3 +93,42 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libraries:
         _libraries[name] = ctypes.CDLL(str(build([name])[name]))
     return _libraries[name]
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C function `symbol` of library `name`, declared with `argtypes` and
+    returning a cudaError_t as an int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def raise_on_error(name: str, err: int) -> None:
+    """Raise if a launch of library `name` returned a CUDA error (each
+    library exports `<name>_error_string`)."""
+    if err:
+        describe = getattr(load(name), f"{name}_error_string")
+        describe.argtypes, describe.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name} CUDA error {err}: "
+                           f"{describe(err).decode()}")
+
+
+def check_tensor(t: torch.Tensor, what: str, dtypes, shape=None) -> None:
+    """Raise ValueError unless `t` is a contiguous CUDA tensor of one of
+    `dtypes` (and of `shape`, where given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d) for d in dtypes)
+        raise ValueError(f"{what} must be {names}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of `t`'s device, as the pointer a C entry
+    point takes (call inside ``torch.cuda.device(t.device)``)."""
+    return torch.cuda.current_stream(t.device).cuda_stream

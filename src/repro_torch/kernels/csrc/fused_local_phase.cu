@@ -6,8 +6,9 @@
 // computes, bit for bit: the pointers AND the round count for the tile
 // (block_x, Y, Z).
 //
-//   1. Init, one thread per voxel.  mode 0 (manifold): the steepest
-//      neighbor -- self first, then the offsets in the order of
+//   1. Init: stencil.cuh's global stencil, one thread per voxel, templated
+//      on the connectivity.  mode 0 (manifold): the steepest neighbor --
+//      self first, then the offsets in the order of
 //      repro_torch/core/steepest.py, a candidate replacing the best only if
 //      strictly greater (jnp.argmax's first-max-wins).  mode 1 (cc): the
 //      largest masked neighbor id including self, -1 for unmasked voxels.
@@ -16,7 +17,7 @@
 //      planes, so the init is a plain global stencil; out-of-grid neighbours
 //      are skipped (the TPU's inert fill never wins).  A ragged X needs no
 //      padding: a short last tile gives the pointers and rounds of the TPU
-//      kernel's pinned pad rows.
+//      kernel's pinned pad rows.  steepest_neighbor.cu runs the same init.
 //   2. Saturation: synchronous pointer doubling src -> dst, confined to the
 //      voxel's own x-slab id range; negative and out-of-slab pointers are
 //      fixed.  A round sets a device flag on any change, and the host loop
@@ -40,74 +41,12 @@
 // buffer of the same size and type, and a device int flag.  Every entry
 // point runs on the given stream and returns a cudaError_t (0 on success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stencil.cuh"
 
 namespace {
 
-constexpr int kMaxOffsets = 26;
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;
-
-struct Offsets {
-  int n;
-  int8_t d[kMaxOffsets][3];
-};
-
-template <typename Id>
-__global__ void init_kernel(const void* __restrict__ field,
-                            const uint8_t* __restrict__ self_mask,
-                            Id* __restrict__ out, int mode, int X, int Y,
-                            int Z, Offsets offs) {
-  const int64_t n = (int64_t)X * Y * Z;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  // the loop index is 64-bit so that i + stride cannot wrap; the id
-  // arithmetic below runs in Id (32-bit divisions when ids are int32)
-  for (int64_t ii = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; ii < n;
-       ii += stride) {
-    const Id i = (Id)ii;
-    const int z = (int)(i % Z);
-    const Id xy = i / Z;
-    const int y = (int)(xy % Y);
-    const int x = (int)(xy / Y);
-    Id best;
-    if (mode == 0) {
-      const int32_t* order = static_cast<const int32_t*>(field);
-      int32_t best_val = order[i];
-      best = i;
-      for (int k = 0; k < offs.n; ++k) {
-        const int nx = x + offs.d[k][0], ny = y + offs.d[k][1],
-                  nz = z + offs.d[k][2];
-        if (nx < 0 || nx >= X || ny < 0 || ny >= Y || nz < 0 || nz >= Z)
-          continue;
-        const Id j = ((Id)nx * Y + ny) * Z + nz;
-        const int32_t v = order[j];
-        if (v > best_val) {
-          best_val = v;
-          best = j;
-        }
-      }
-      if (self_mask != nullptr && self_mask[i]) best = i;
-    } else {
-      const uint8_t* mask = static_cast<const uint8_t*>(field);
-      if (!mask[i]) {
-        best = -1;
-      } else {
-        best = i;
-        for (int k = 0; k < offs.n; ++k) {
-          const int nx = x + offs.d[k][0], ny = y + offs.d[k][1],
-                    nz = z + offs.d[k][2];
-          if (nx < 0 || nx >= X || ny < 0 || ny >= Y || nz < 0 || nz >= Z)
-            continue;
-          const Id j = ((Id)nx * Y + ny) * Z + nz;
-          if (mask[j] && j > best) best = j;
-        }
-        if (self_mask != nullptr && self_mask[i]) best = i;
-      }
-    }
-    out[i] = best;
-  }
-}
 
 template <typename Id>
 __global__ void doubling_round(const Id* __restrict__ src, Id* __restrict__ dst,
@@ -139,18 +78,17 @@ int run(const void* field, const uint8_t* self_mask, Id* out, Id* scratch,
         const int* offsets, int n_offsets, int max_rounds,
         cudaStream_t stream, int* rounds_out) {
   *rounds_out = 0;
-  if (n_offsets < 0 || n_offsets > kMaxOffsets) return cudaErrorInvalidValue;
-  Offsets offs;
-  offs.n = n_offsets;
-  for (int k = 0; k < n_offsets; ++k)
-    for (int a = 0; a < 3; ++a) offs.d[k][a] = (int8_t)offsets[3 * k + a];
+  if (!stencil::offsets_match(n_offsets, offsets) || (mode != 0 && mode != 1))
+    return cudaErrorInvalidValue;
   const Id n = (Id)X * Y * Z;
   if (n == 0) return cudaSuccess;
-  const int blocks = grid_blocks((int64_t)n);
-  init_kernel<Id><<<blocks, kThreads, 0, stream>>>(field, self_mask, out, mode,
-                                                  X, Y, Z, offs);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      mode == 0 ? stencil::launch_init<stencil::kSteepest, Id>(
+                      n_offsets, field, self_mask, out, X, Y, Z, stream)
+                : stencil::launch_init<stencil::kMaskedMax, Id>(
+                      n_offsets, field, self_mask, out, X, Y, Z, stream);
   if (err != cudaSuccess) return err;
+  const int blocks = grid_blocks((int64_t)n);
 
   const Id tsize = (Id)block_x * Y * Z;
   Id* cur = out;
@@ -186,7 +124,8 @@ extern "C" {
 
 // field: int32 order (mode 0) or bool/uint8 mask (mode 1), X*Y*Z row-major.
 // self_mask: bool/uint8 X*Y*Z or NULL.  out, scratch: X*Y*Z ids.
-// offsets: n_offsets (dx, dy, dz) triples.  Writes the round count to
+// offsets: n_offsets (dx, dy, dz) triples, which must be stencil.cuh's
+// table for connectivity n_offsets (6, 14, 18 or 26).  Writes the round count to
 // *rounds_out and returns a cudaError_t.
 int fused_local_phase_i32(const void* field, const void* self_mask, void* out,
                           void* scratch, void* flag, int mode, int X, int Y,

@@ -32,25 +32,9 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 
 
 def _entry(id_dtype):
-    lib = _build.load("fused_local_phase")
-    fn = getattr(lib, "fused_local_phase_i32" if id_dtype == torch.int32
-                 else "fused_local_phase_i64")
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    lib.fused_local_phase_error_string.argtypes = [ctypes.c_int]
-    lib.fused_local_phase_error_string.restype = ctypes.c_char_p
-    return fn, lib.fused_local_phase_error_string
-
-
-def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    return _build.entry("fused_local_phase",
+                        "fused_local_phase_i32" if id_dtype == torch.int32
+                        else "fused_local_phase_i64", _ARGTYPES)
 
 
 def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
@@ -74,10 +58,10 @@ def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
                          f"{KERNEL_CONNECTIVITIES}, got {connectivity}")
     if block_x < 1:
         raise ValueError(f"block_x must be >= 1, got {block_x}")
-    _check(field, "field", torch.int32 if mode == "manifold" else torch.bool,
-           field.shape)
+    _build.check_tensor(field, "field", (torch.int32,) if mode == "manifold"
+                        else (torch.bool,))
     if self_mask is not None:
-        _check(self_mask, "self_mask", torch.bool, field.shape)
+        _build.check_tensor(self_mask, "self_mask", (torch.bool,), field.shape)
         if self_mask.device != field.device:
             raise ValueError("self_mask must be on the field's device")
     x, y, z = field.shape
@@ -94,17 +78,14 @@ def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
     offs = [c for off in neighbor_offsets(3, connectivity) for c in off]
     offsets = (ctypes.c_int * len(offs))(*offs)
     rounds = ctypes.c_int(0)
-    fn, error_string = _entry(id_dtype)
+    fn = _entry(id_dtype)
     with torch.cuda.device(field.device):
-        stream = torch.cuda.current_stream(field.device).cuda_stream
         err = fn(field.data_ptr(),
                  None if self_mask is None else self_mask.data_ptr(),
                  out.data_ptr(), scratch.data_ptr(), flag.data_ptr(),
                  _MODES[mode], x, y, z, block_x, offsets,
                  len(offs) // 3, max_saturation_rounds(block_x * y * z),
-                 stream, ctypes.byref(rounds))
-    if err:
-        raise RuntimeError(f"fused_local_phase CUDA error {err}: "
-                           f"{error_string(err).decode()}")
+                 _build.stream(field), ctypes.byref(rounds))
+    _build.raise_on_error("fused_local_phase", err)
     launches[mode] += 1
     return out, rounds.value

@@ -2,7 +2,11 @@
 
 Every test here is marked `cuda` and skips without a CUDA device: a CUDA
 kernel has no CPU mode (the plain versions are held to the JAX package by
-the other `tests/test_torch_*.py` files).  This file imports neither jax nor
+the other `tests/test_torch_*.py` files).  Tolerances: exact for the
+pointer kernels (`fused_local_phase`, `steepest_neighbor`,
+`block_pathcompress`); 1e-5 (fp32) and 3e-2 (bf16) for `segment_bag` and
+2e-5 (fp32) and 2e-2 (bf16) for `flash_attention`, whose sums run in
+another order than their plain versions'.  This file imports neither jax nor
 `repro`, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_local_phase as kmod, ops, ref
+from repro_torch.kernels import block_pathcompress as bpc_mod
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import segment_bag as bag_mod
+from repro_torch.kernels import steepest_neighbor as steepest_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +80,152 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         kmod.fused_local_phase(field.transpose(0, 2), 6)
     with pytest.raises(ValueError, match="self_mask"):
         kmod.fused_local_phase(field, 6, self_mask=smask[:2])
+
+
+# --- the four stand-alone kernels --------------------------------------------
+
+
+def _close(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               equal_nan=False)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["unique", "ties"])
+@pytest.mark.parametrize("conn", [6, 14, 18, 26])
+def test_steepest_kernel_vs_plain(cuda, conn, ties):
+    """Ragged extents (Z past one 32-wide block, Y past one 4-row block);
+    with ties the offset order decides, so it must be the plain one."""
+    rng = np.random.default_rng(conn + 100 * ties)
+    for shape in ((13, 11, 37), (3, 1, 2)):
+        n = int(np.prod(shape))
+        order = (rng.integers(0, 4, size=shape) if ties
+                 else rng.permutation(n).reshape(shape)).astype(np.int32)
+        t = torch.from_numpy(order).to(cuda)
+        before = steepest_mod.launches[conn]
+        got = ops.steepest_neighbor(t, conn)
+        want = ref.steepest_neighbor_ref(t, conn)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert steepest_mod.launches[conn] == before + 1
+
+
+@pytest.mark.parametrize("conn", [6, 26])
+def test_stencil_refuses_another_offset_order(cuda, monkeypatch, conn):
+    """The stencil's offsets are compile-time constants (`csrc/stencil.cuh`);
+    both kernels that run it refuse a Python table in another order, whose
+    ties would differ, instead of computing with their own."""
+    from repro_torch.core.steepest import neighbor_offsets
+    table = list(neighbor_offsets(3, conn))
+    table[0], table[1] = table[1], table[0]
+    order = torch.arange(60, dtype=torch.int32, device=cuda).reshape(3, 4, 5)
+    for mod, call in ((steepest_mod, lambda: steepest_mod.steepest_neighbor(
+            order, conn)), (kmod, lambda: kmod.fused_local_phase(order,
+                                                                 conn))):
+        monkeypatch.setattr(mod, "neighbor_offsets", lambda *a: table)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call()
+
+
+def _pointers(n, seed):
+    rng = np.random.default_rng(seed)
+    d = np.minimum(np.arange(n) + rng.integers(0, 64, size=n), n + 40)
+    d[rng.random(n) < 0.05] = -1
+    return d.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,block,rounds,config", [
+    (100, 32, 3, "shared"), (1005, 100, 2, "shared"), (50, 4096, 4, "shared"),
+    (100_000, 4096, 6, "shared"), (100_000, 8192, 1, "shared"),
+    (100_000, 40_000, 5, "global"),   # int32 tile of 160 KB: two do not fit
+    (70_000, 65_536, 2, "global")])
+def test_block_pathcompress_kernel_vs_plain(cuda, n, block, rounds, config,
+                                            dtype):
+    """Both launch configurations, exact; pointers run past n (into the -1
+    pad) and past their tile."""
+    d = torch.from_numpy(_pointers(n, n + rounds)).to(cuda, dtype)
+    assert bpc_mod.configuration(ref.snapped_block(n, block),
+                                 dtype) == config
+    before = bpc_mod.launches[config]
+    got = ops.block_pathcompress(d, rounds, block)
+    want = ref.block_pathcompress_kernel_ref(d, rounds, block)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    # one launch a call in shared memory, one a round in device memory
+    assert bpc_mod.launches[config] == before + (
+        1 if config == "shared" else rounds)
+    assert torch.equal(ops.block_pathcompress(d, 0, block), d)
+
+
+@pytest.mark.parametrize("table_dtype,tol", [(torch.float32, 1e-5),
+                                             (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("v,d,b,l", [(256, 32, 64, 16), (96, 40, 12, 37),
+                                     (1000, 4, 300, 1)])
+def test_segment_bag_kernel_vs_plain(cuda, v, d, b, l, id_dtype, table_dtype,
+                                     tol):
+    """ids from [-3, V + 5): -1 pads, other negative ids and ids >= V add
+    nothing; bag 0 is all padding."""
+    rng = np.random.default_rng(v + d)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(
+        cuda, table_dtype)
+    ids = rng.integers(-3, v + 5, size=(b, l))
+    ids[0] = -1
+    ids = torch.from_numpy(ids).to(cuda, id_dtype)
+    key = str(table_dtype).removeprefix("torch.")
+    before = bag_mod.launches[key]
+    got = ops.embedding_bag(table, ids)
+    _close(got, ref.segment_bag_ref(table, ids), tol)
+    assert not got[0].any()
+    assert bag_mod.launches[key] == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 2, 128, 256, 64, False),   # GQA
+    (1, 4, 2, 64, 192, 112, True),    # causal, Sk > Sq, D = 112
+    (1, 4, 2, 128, 64, 4, True),      # causal, Sk < Sq: rows average V
+    (2, 8, 8, 100, 100, 160, True),   # Sq not a multiple of 8 rows
+    (1, 2, 1, 40, 72, 256, False),    # D = 256: 74 KB of shared memory
+    (1, 8, 1, 33, 33, 128, True)])    # MQA, a ragged last key tile
+def test_flash_kernel_vs_plain(cuda, b, h, hkv, sq, sk, d, causal, dtype,
+                               tol):
+    rng = np.random.default_rng(sq * d + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((b, h, sq, d), (b, hkv, sk, d),
+                               (b, hkv, sk, d)))
+    key = str(dtype).removeprefix("torch.")
+    before = flash_mod.launches[key]
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=sq, block_k=sk)
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
+    assert flash_mod.launches[key] == before + 1
+    if causal and sk < sq:            # the first sq - sk rows: mean of V
+        mean = v.float().mean(2).repeat_interleave(h // hkv, dim=1)
+        torch.testing.assert_close(got[:, :, 0].float(), mean, rtol=tol,
+                                   atol=tol)
+
+
+def test_new_kernels_reject_what_they_cannot_take(cuda):
+    t = torch.zeros(2, 3, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        steepest_mod.steepest_neighbor(t.long(), 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        steepest_mod.steepest_neighbor(t.transpose(0, 2), 6)
+    with pytest.raises(ValueError, match="1-D"):
+        bpc_mod.block_pathcompress(t)
+    with pytest.raises(ValueError, match="int32 or"):
+        bpc_mod.block_pathcompress(t.reshape(-1).float())
+    table = torch.zeros(8, 4, device=cuda)
+    with pytest.raises(ValueError, match="ids must be a CUDA tensor"):
+        bag_mod.segment_bag(table, torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32 or"):
+        bag_mod.segment_bag(table.half(), t[0])
+    q = torch.zeros(1, 2, 8, 264, device=cuda)
+    with pytest.raises(ValueError, match="256"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_mod.flash_attention(q, q.bfloat16(), q)
