@@ -26,10 +26,13 @@ seconds:
      `segment_bag`, `flash_attention`): each kernel against its plain
      version on ragged cases and at full size (the grid_512 order field and
      its steepest pointers; BST's multihot table at the serve_bulk batch;
-     llama3.2-1b attention widths at 32k, batch cut from 32 to 1), then the
-     `ops` path with every launch counter set to 0 just before and read
-     just after, its results checked against the compared ones, and the
-     kernel, plain, bound and library times.
+     llama3.2-1b attention widths at 32k, batch cut from 32 to 1, bf16 on
+     the tensor-core kernel and f32 on the CUDA-core one; D = 320 on the
+     CUDA-core kernel in both dtypes), then the `ops` path with every
+     launch counter set to 0 just before and read just after, its results
+     checked against the compared ones, and the kernel, plain, bound and
+     library times, attention's TFLOP/s and the tensor-core kernel's
+     ptxas registers and spills.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -37,6 +40,7 @@ the exit code is not 0.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,9 +64,11 @@ TOL = {"bfloat16": {"bag": 3e-2, "attn": 2e-2},
        "float32": {"bag": 1e-5, "attn": 2e-5}}
 # Full-size bf16 attention (rtol, atol): a row that sees n random keys has
 # outputs of about sqrt(e / n), ~0.013 at n = 16k, so 2e-2 would pass a
-# kernel that dropped key tiles or wrote zeros.  Kernel and plain version
-# both sum in fp32 and round once to bf16, so they may differ by one bf16
-# ulp (at most 2^-7 of the value): rtol 8e-3, plus atol 2e-3 near zero.
+# kernel that dropped key tiles or wrote zeros.  The plain version keeps p
+# in fp32; the tensor-core kernel carries it as two bf16 parts (within
+# ~2^-17), so both sum in fp32 and round once to bf16 and may differ by one
+# bf16 ulp (at most 2^-7 of the value): rtol 8e-3, plus atol 2e-3 near
+# zero.  The run prints the worst element's share of this limit.
 ATTN_BF16_FULL = (8e-3, 2e-3)
 
 
@@ -89,6 +95,30 @@ def event_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def ptxas_report(log, kernel):
+    """{"kernel<template ints>": {"registers", "spill_stores",
+    "spill_loads"}} of every entry function whose mangled name contains
+    `kernel`, from a `-Xptxas -v` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            if kernel in m.group(1):
+                args = re.findall(r"Li(\d+)E", m.group(1))
+                name = f"{kernel}<{', '.join(args)}>"
+        elif name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out.setdefault(name, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def profile(fn, label, top=6):
@@ -132,7 +162,7 @@ def standalone_kernels(order, conn, smi):
     entries of the kernels JSON line."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import block_pathcompress as bpc_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import fused_local_phase as kmod
@@ -150,6 +180,17 @@ def standalone_kernels(order, conn, smi):
         check(got.dtype == want.dtype and got.shape == want.shape and e == 0,
               f"kernel == plain: {what} (max err {e})")
         return e
+
+    def limit_share(got, want, tol):
+        """The largest |got - want| / (atol + rtol |want|) (above 1 fails
+        `close`) and the index of its element."""
+        rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+        want = want.float()
+        share = (got.float() - want).abs_().div_(want.abs().mul_(rtol)
+                                                 .add_(atol))
+        at = int(share.argmax())
+        return float(share.reshape(-1)[at]), [
+            int(i) for i in np.unravel_index(at, tuple(share.shape))]
 
     def close(got, want, tol, what):
         """tol: one number for rtol and atol, or an (rtol, atol) pair."""
@@ -231,13 +272,24 @@ def standalone_kernels(order, conn, smi):
                   ref.flash_attention_kernel_ref(q, k, v, causal=True),
                   TOL[dt]["attn"], f"flash_attention {shape} causal {dt}")
             n_cases += 1
+        # D = 320: the CUDA-core kernel in both dtypes, two column chunks
+        q, k, v = qkv(1, 4, 2, 96, 64, 320, dt)
+        close(flash_mod.flash_attention(q, k, v, causal=True),
+              ref.flash_attention_kernel_ref(q, k, v, causal=True),
+              TOL[dt]["attn"], f"flash_attention (1, 4, 2, 96, 64, 320) "
+              f"causal {dt}")
+        n_cases += 1
         attn[dt] = qkv(ATTN_B, ATTN_H, ATTN_HKV, ATTN_S, ATTN_S, ATTN_D, dt)
         attn_out[dt] = flash_mod.flash_attention(*attn[dt], causal=True)
+        want = ref.flash_attention_kernel_ref(*attn[dt], causal=True)
+        tol = ATTN_BF16_FULL if dt == "bfloat16" else TOL[dt]["attn"]
+        share, at = limit_share(attn_out[dt], want, tol)
+        print(f"  flash_attention 32k causal {dt}: worst element at {share} "
+              f"of its limit, (b, h, query row, column) {at}")
         err[f"flash_attention/{dt}"] = close(
-            attn_out[dt],
-            ref.flash_attention_kernel_ref(*attn[dt], causal=True),
-            ATTN_BF16_FULL if dt == "bfloat16" else TOL[dt]["attn"],
+            attn_out[dt], want, tol,
             f"flash_attention llama3.2-1b 32k causal {dt}")
+        del want
     print(f"  {n_cases} ragged/small cases and 6 full-size cases: kernel == "
           f"plain (pointers exactly; bags within 1e-5 f32 / 3e-2 bf16; "
           f"attention within 2e-5 f32, bf16 2e-2 small and rtol "
@@ -264,8 +316,13 @@ def standalone_kernels(order, conn, smi):
     check(launches["steepest_neighbor"][conn] == 1
           and launches["block_pathcompress"]["shared"] == 1
           and launches["segment_bag"] == {"float32": 1, "bfloat16": 1}
-          and launches["flash_attention"] == {"float32": 1, "bfloat16": 1},
+          and launches["flash_attention"]["float32"] == 1,
           "the ops path launched each stand-alone kernel once")
+    check(launches["flash_attention"] == {"float32": 1, "bfloat16": 1,
+                                          "bfloat16_cuda_cores": 0}
+          and flash_mod.route(torch.bfloat16, ATTN_D) == "bfloat16",
+          "the ops path's bf16 attention ran the tensor-core kernel, once, "
+          "and no other kernel")
     check(torch.equal(got["steepest"].reshape(-1), ptr)
           and torch.equal(got["bpc"], ref.block_pathcompress_kernel_ref(
               ptr, 4, 4096)), "ops pointers == the plain versions'")
@@ -341,9 +398,25 @@ def standalone_kernels(order, conn, smi):
               distinct_rows=rows)
     from torch.nn.attention import SDPBackend, sdpa_kernel
     pairs = ATTN_S * (ATTN_S + 1) // 2           # visible (q, k) pairs
+    flops = 4 * ATTN_B * ATTN_H * ATTN_D * pairs
+    tc_ptxas = ptxas_report(_build.build_log("flash_attention"),
+                            "flash_tc")
+    check(len(tc_ptxas) == 3, f"ptxas reports the three tensor-core "
+          f"instances (Dp 64, 128, 256): {tc_ptxas}")
+    for name, rep in tc_ptxas.items():
+        print(f"  ptxas {name}: {rep}")
+    designs = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, "
+               "ldmatrix, cp.async x2 (two-stage K/V ring), P as bf16 hi + "
+               "lo (two PV mma); D = 64: 128 query rows x 64 keys a CTA of "
+               "4 warps",
+               "float32": "CUDA cores: warp per query row, 32-key fp32 "
+               "tiles in shared memory"}
     for dt in ("bfloat16", "float32"):
         q, k, v = attn[dt]
         size = q.element_size()
+        extra = {"design": designs[dt]}
+        if dt == "bfloat16":
+            extra["ptxas"] = tc_ptxas
 
         def sdpa():
             # SDPA's causal mask is top-left aligned: equal only at Sq == Sk.
@@ -359,7 +432,14 @@ def standalone_kernels(order, conn, smi):
               lambda: ops.flash_attention(q, k, v, causal=True),
               lambda: ref.flash_attention_kernel_ref(q, k, v, causal=True),
               (2 * q.numel() + 2 * k.numel()) * size,
-              4 * ATTN_B * ATTN_H * ATTN_D * pairs, FLOPS_PER_S[dt], lib)
+              flops, FLOPS_PER_S[dt], lib, **extra)
+        row = kernels[-1]
+        row["tflops"] = flops / row["ms"] / 1e9
+        lib_rate = ("" if lib is None else
+                    f", SDPA {flops / row['library_ms'] / 1e9:.1f} TFLOP/s")
+        print(f"    {row['tflops']:.1f} TFLOP/s ({flops:.4e} flops; the "
+              f"bound's {FLOPS_PER_S[dt] / 1e12:.0f} TFLOP/s in "
+              f"{row['bound_ms']:.3f} ms{lib_rate}; {row['design']})")
         if lib is None:
             print("    library: none - SDPA runs GQA only on its flash "
                   "backend (fp16/bf16) and its math backend, which would "
@@ -367,7 +447,7 @@ def standalone_kernels(order, conn, smi):
         else:
             e = float((sdpa().float() - attn_out[dt].float()).abs().max())
             print(f"    SDPA vs kernel: max abs difference {e} (not a "
-                  "check: SDPA rounds P to bf16 before PV)")
+                  "check: SDPA tiles and rounds P in its own way)")
 
     def pointer_and_bag_calls():
         d = ops.steepest_neighbor(order, conn)

@@ -130,9 +130,11 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
 
     As in JAX, ``Sq % min(block_q, Sq)`` and ``Sk % min(block_k, Sk)`` must
     be 0 (ValueError here, an assertion there); the CUDA kernel tiles on its
-    own.  "auto"/"kernel": the CUDA kernel (float32 or bfloat16, D <= 256),
-    or its plain version on a CPU tensor under "auto"; both give a fully
-    masked causal row the mean of V.  impl="ref": JAX's chunked oracle
+    own.  "auto"/"kernel": a CUDA kernel (bfloat16 with D <= 256 on the
+    tensor cores, float32 and wider bfloat16 up to D = 1247 on the CUDA
+    cores; `flash_attention.route`), or its plain version, for any D, on a
+    CPU tensor under "auto"; both give a fully masked causal row the mean
+    of V.  impl="ref": JAX's chunked oracle
     `ref.flash_attention_ref`, NaN on such rows.
     """
     if impl not in IMPLS:

@@ -6,7 +6,9 @@ the other `tests/test_torch_*.py` files).  Tolerances: exact for the
 pointer kernels (`fused_local_phase`, `steepest_neighbor`,
 `block_pathcompress`); 1e-5 (fp32) and 3e-2 (bf16) for `segment_bag` and
 2e-5 (fp32) and 2e-2 (bf16) for `flash_attention`, whose sums run in
-another order than their plain versions'.  This file imports neither jax nor
+another order than their plain versions' (whose p stays fp32; the bf16
+tensor-core kernel carries it as two bf16 parts), with rtol 8e-3 / atol
+2e-3 (one bf16 ulp) for its Sq = Sk = 1024 case.  This file imports neither jax nor
 `repro`, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import fused_local_phase as kmod, ops, ref
 from repro_torch.kernels import block_pathcompress as bpc_mod
 from repro_torch.kernels import flash_attention as flash_mod
@@ -193,19 +196,86 @@ def test_segment_bag_kernel_vs_plain(cuda, v, d, b, l, id_dtype, table_dtype,
     (1, 8, 1, 33, 33, 128, True)])    # MQA, a ragged last key tile
 def test_flash_kernel_vs_plain(cuda, b, h, hkv, sq, sk, d, causal, dtype,
                                tol):
-    rng = np.random.default_rng(sq * d + sk)
-    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
-        cuda, dtype) for s in ((b, h, sq, d), (b, hkv, sk, d),
-                               (b, hkv, sk, d)))
-    key = str(dtype).removeprefix("torch.")
-    before = flash_mod.launches[key]
-    got = ops.flash_attention(q, k, v, causal=causal, block_q=sq, block_k=sk)
+    """bf16 runs the tensor-core kernel at every D here (4 to 256), f32 the
+    CUDA-core kernel; each call adds one to its kernel's count only."""
+    q, k, v = _attention_inputs(b, h, hkv, sq, sk, d, dtype, cuda,
+                                seed=sq * d + sk)
+    got = _flash_once(q, k, v, causal, str(dtype).removeprefix("torch."))
     _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
-    assert flash_mod.launches[key] == before + 1
     if causal and sk < sq:            # the first sq - sk rows: mean of V
         mean = v.float().mean(2).repeat_interleave(h // hkv, dim=1)
         torch.testing.assert_close(got[:, :, 0].float(), mean, rtol=tol,
                                    atol=tol)
+
+
+def _attention_inputs(b, h, hkv, sq, sk, d, dtype, device, seed, mag=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.normal(size=s) * mag).astype(
+        np.float32)).to(device, dtype)
+        for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def _flash_once(q, k, v, causal, key):
+    """ops.flash_attention, asserting that it launched kernel `key` once
+    and no other kernel."""
+    before = dict(flash_mod.launches)
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=q.shape[2],
+                              block_k=k.shape[2])
+    assert flash_mod.route(q.dtype, q.shape[3]) == key
+    assert flash_mod.launches == {n: c + (n == key)
+                                  for n, c in before.items()}
+    return got
+
+
+def test_flash_tc_causal_gqa_1024(cuda):
+    """bf16, causal GQA at Sq = Sk = 1024, D = 64: 8 query tiles of 128
+    rows, the early stop and the diagonal tiles, held to the full-size
+    limit (rtol 8e-3, atol 2e-3: one bf16 ulp), not 2e-2."""
+    q, k, v = _attention_inputs(2, 8, 2, 1024, 1024, 64, torch.bfloat16,
+                                cuda, seed=1024)
+    got = _flash_once(q, k, v, True, "bfloat16")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_kernel_ref(q, k, v,
+                                                    causal=True).float(),
+        rtol=8e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tc_large_scores(cuda, causal):
+    """q and k times 8 (scores of hundreds): the online rescale of m, l and
+    the accumulator across key tiles."""
+    q, k, v = _attention_inputs(1, 4, 2, 200, 300, 64, torch.bfloat16, cuda,
+                                seed=8)
+    q, k = q * 8, k * 8
+    got = _flash_once(q, k, v, causal, "bfloat16")
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), 2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, False), (1, 1, True),
+                                          (1, 77, True), (65, 1, True)])
+def test_flash_kernel_single_rows(cuda, sq, sk, causal, dtype, tol):
+    """Sq = 1 and Sk = 1 (one key: the output is v, or the mean of V for a
+    fully masked row)."""
+    q, k, v = _attention_inputs(2, 4, 1, sq, sk, 128, dtype, cuda,
+                                seed=sq + 7 * sk)
+    got = _flash_once(q, k, v, causal, str(dtype).removeprefix("torch."))
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
+
+
+@pytest.mark.parametrize("dtype,tol,key", [
+    (torch.float32, 2e-5, "float32"),
+    (torch.bfloat16, 2e-2, "bfloat16_cuda_cores")])
+@pytest.mark.parametrize("sq,sk,causal", [(40, 72, False), (96, 64, True)])
+def test_flash_kernel_head_dim_320(cuda, sq, sk, causal, dtype, tol, key):
+    """D = 320 (> 256) runs the CUDA-core kernel in both dtypes, its output
+    columns in two chunks (256 + 64)."""
+    q, k, v = _attention_inputs(1, 4, 2, sq, sk, 320, dtype, cuda,
+                                seed=320 + sq)
+    got = _flash_once(q, k, v, causal, key)
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
 
 
 def test_new_kernels_reject_what_they_cannot_take(cuda):
@@ -223,9 +293,25 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
         bag_mod.segment_bag(table, torch.zeros(2, 3, dtype=torch.int32))
     with pytest.raises(ValueError, match="float32 or"):
         bag_mod.segment_bag(table.half(), t[0])
-    q = torch.zeros(1, 2, 8, 264, device=cuda)
-    with pytest.raises(ValueError, match="256"):
+    q = torch.zeros(1, 2, 8, 1248, device=cuda)
+    with pytest.raises(ValueError, match="1247"):
         ops.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_mod.flash_attention(q, q.bfloat16(), q)
+
+
+@pytest.mark.parametrize("key, d", [
+    ("bfloat16", flash_mod.TC_MAX_HEAD_DIM + 1),
+    ("bfloat16_cuda_cores", flash_mod.TC_MAX_HEAD_DIM)])
+def test_flash_bf16_entry_points_meet_at_tc_max_head_dim(cuda, key, d):
+    """The two bf16 C entry points split the head dims where `route` does:
+    each returns cudaErrorInvalidValue (1) on the other's side."""
+    q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(q)
+    fn = _build.entry("flash_attention", flash_mod.SYMBOLS[key],
+                      flash_mod._ARGTYPES)
+    with torch.cuda.device(cuda):
+        err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                 1, 2, 2, 8, 8, d, 0.1, 0, _build.stream(q))
+    assert err == 1

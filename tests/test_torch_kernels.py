@@ -332,6 +332,8 @@ FLASH_CASES = [
     (1, 4, 2, 128, 64, 4, True, 64, 32),        # causal, Sk < Sq: 64 rows
     #                                             see no key (mean of V)
     (2, 2, 1, 64, 64, 4, True, 32, 64),         # causal, Sq == Sk
+    (1, 2, 1, 32, 64, 320, False, 32, 32),      # D = 320 > 256
+    (1, 2, 1, 64, 32, 320, True, 32, 32),       # D = 320, causal, Sk < Sq
 ]
 
 
@@ -407,11 +409,27 @@ def test_flash_dispatch_and_validation():
     ops.flash_attention(tq, tk, tv, block_q=512, block_k=512)  # clamped
     with pytest.raises(ValueError, match="multiple of the kv heads"):
         ops.flash_attention(tq[:, :3], tk, tv)
-    big = torch.zeros(1, 1, 4, 264)
-    with pytest.raises(ValueError, match="256"):
-        ops.flash_attention(big, big, big)
+    # the plain version takes any D; the CUDA kernels stop at 1247
+    big = torch.zeros(1, 1, 4, 1248)
+    assert ops.flash_attention(big, big, big).shape == big.shape
+    with pytest.raises(ValueError, match="1247"):
+        flash_mod.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_mod.flash_attention(tq, tk, tv)
+
+
+def test_flash_route():
+    """Which kernel a CUDA call runs, by dtype and head dim."""
+    assert [flash_mod.route(torch.bfloat16, d) for d in (1, 4, 64, 256)] \
+        == ["bfloat16"] * 4
+    assert [flash_mod.route(torch.bfloat16, d) for d in (257, 320, 1247)] \
+        == ["bfloat16_cuda_cores"] * 3
+    assert [flash_mod.route(torch.float32, d) for d in (4, 256, 320)] \
+        == ["float32"] * 3
+    assert set(flash_mod.launches) == set(flash_mod.SYMBOLS) == {
+        "float32", "bfloat16", "bfloat16_cuda_cores"}
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_mod.route(torch.float16, 64)
 
 
 # --- interop: bf16 crosses bit for bit ----------------------------------------
