@@ -11,7 +11,9 @@ seconds:
   2. build: nvcc builds every kernel of the port from the checkout;
   3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
      the card, pointers and rounds exactly equal (ragged 97x61x43 cases,
-     int64 ids, and the 512^3 grid);
+     int64 ids, long chains in one slab -- serpentine and z-ramp order
+     fields both ways round, cc lines along z, `repro_torch.data.chains` --
+     and the 512^3 grid);
   4. main path at 512^3 (configs `grid_512` / `cc_512`): Perlin field ->
      order field -> an `ms` query and a `cc` query on the top-10% mask
      through `repro_torch.topology.submit`, with the kernel launch counters
@@ -20,7 +22,10 @@ seconds:
      card, scipy.ndimage.label on the host, extrema, segment counts;
   6. numbers: warm query times, kernel and plain times beside the bound,
      peak device memory, rounds and counts, and a torch.profiler breakdown
-     of one kernel launch and of one query of each kind;
+     of one kernel launch of each mode (with its count of device-to-host
+     copies, which must be one: the round count read back) and of one
+     query of each kind; the previous design's times (synchronous doubling
+     rounds), read in an earlier run, are printed on a line of their own;
   7. the four stand-alone kernels behind `repro_torch.kernels.ops`
      (`steepest_neighbor`, `block_pathcompress`, `embedding_bag` ->
      `segment_bag`, `flash_attention`): each kernel against its plain
@@ -55,6 +60,21 @@ INT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores,
 FLOPS_PER_S = {"bfloat16": 989e12,   # dense bf16 tensor-core rate
                "float32": 67e12}     # fp32 outside the tensor cores
 RAGGED = (97, 61, 43)
+# (field, flipped along y and z, shape, mode, block_x, ids): chains of up to
+# ~131,000 hops (serpentine, one 512 x 512 plane a slab) and ~1,030 hops
+# (z ramp), and cc lines of 512 voxels
+LONG_CHAINS = (("serpentine_order", False, (8, 512, 512), "manifold", 1, None),
+               ("serpentine_order", True, (8, 512, 512), "manifold", 1, None),
+               ("serpentine_order", True, (4, 64, 64), "manifold", 1,
+                "int64"),
+               ("z_ramp_order", False, (64, 512, 512), "manifold", 8, None),
+               ("z_ramp_order", True, (64, 512, 512), "manifold", 8, None),
+               ("z_line_mask", False, (64, 512, 512), "cc", 8, None))
+# the previous design of the fused kernel (synchronous doubling rounds, one
+# host read a round): ms per launch at 512^3 on an NVIDIA H100 80GB HBM3 at
+# 700 W, read by this script in an earlier run (PERF.md, run R); printed
+# for reference, never part of the measured results
+EARLIER_RUN_MS = {"manifold": 11.519, "cc": 10.124}
 # BST (configs/bst.py): two multihot fields of 500,000 rows, embed_dim 32,
 # 16 ids a bag; serve_bulk's batch
 BAG_V, BAG_D, BAG_B, BAG_L = 2 * 500_000, 32, 262_144, 16
@@ -122,9 +142,10 @@ def ptxas_report(log, kernel):
 
 
 def profile(fn, label, top=6):
-    """Device time of one call of fn by operation (torch.profiler): the
-    window's wall time, the device's busy time and idle share, and the
-    operations that took most device time."""
+    """Device time of one call of fn by operation (torch.profiler): prints
+    the window's wall time, the device's busy time and idle share, and the
+    operations that took most device time; returns every device row as
+    (name, ms, count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -149,11 +170,12 @@ def profile(fn, label, top=6):
     if not rows:
         print(f"  profile {label}: wall {wall:.3f} ms, device time not "
               "measured (the profiler saw no device activity)")
-        return
+        return rows
     print(f"  profile {label}: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    return rows
 
 
 def standalone_kernels(order, conn, smi):
@@ -476,7 +498,7 @@ def main():
         connected_components_grid
     from repro_torch.core.ids import compute_order
     from repro_torch.core.ms_segmentation import ms_segmentation, extrema
-    from repro_torch.data import perlin_noise, quantile
+    from repro_torch.data import chains, perlin_noise, quantile
     from repro_torch.topology import TopologyRequest, submit
 
     dev = torch.device("cuda")
@@ -519,6 +541,8 @@ def main():
     rounds = {}
 
     def compare(field, c, mode, smask, block_x, id_dtype=None):
+        if isinstance(id_dtype, str):
+            id_dtype = getattr(torch, id_dtype)
         got, r = kmod.fused_local_phase(field, c, mode=mode,
                                         self_mask=smask, block_x=block_x,
                                         id_dtype=id_dtype)
@@ -557,6 +581,15 @@ def main():
         n_cases += 1
     print(f"  {n_cases} ragged/int64 cases: kernel == plain (tolerance 0: "
           "pointers and rounds exactly equal)")
+    # long chains in one slab (repro_torch.data.chains), both directions of
+    # the ids (flipped along y and z), at slab sizes of the main path
+    for make, flip, shp, mode, block_x, id_dtype in LONG_CHAINS:
+        f = getattr(chains, make)(shp, device=dev)
+        f = (f.flip((1, 2)) if flip else f).contiguous()
+        r = compare(f, 6, mode, None, block_x, id_dtype)
+        print(f"  {make} {shp}{' flipped' if flip else ''} block_x "
+              f"{block_x}: kernel == plain, {r} rounds")
+        del f
 
     field = perlin_noise(shape, frequency=0.1, seed=SEED)
     # the field's float64 sum tells two runs' inputs apart
@@ -671,6 +704,18 @@ def main():
             lambda: ref.fused_local_phase_ref(f, conn, mode=mode), 3)
         by_bytes = n * bytes_per_voxel[mode] / HBM_BYTES_PER_S * 1e3
         by_ops = n * (conn + 1) / INT_OPS_PER_S * 1e3   # one compare each
+        # device-to-host copies in the profile of one launch (the round
+        # count read back); a profiler window can see no device activity
+        # (PERF.md section 7), so up to three windows are taken, and with
+        # none the count is not measured and the check fails
+        for _ in range(3):
+            rows = profile(
+                lambda: kmod.fused_local_phase(f, conn, mode=mode),
+                f"kernel, {mode}")
+            if rows:
+                break
+        d2h = (sum(count for key, _, count in rows if "DtoH" in key)
+               if rows else None)
         kernels.append({
             "name": f"fused_local_phase/{mode}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_local_phase.cu",
@@ -679,11 +724,17 @@ def main():
             "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None, "rounds_512": rounds[mode]})
+            "library_ms": None, "rounds_512": rounds[mode],
+            "device_to_host_copies_per_launch": d2h})
         print(f"  fused_local_phase/{mode}: kernel {kernel_ms:.3f} ms "
               f"({rounds[mode]} rounds), plain {plain_ms:.3f} ms, "
-              f"bound {max(by_bytes, by_ops):.3f} ms ({smi})")
-    profile(lambda: kmod.fused_local_phase(order, conn), "kernel, manifold")
+              f"bound {max(by_bytes, by_ops):.3f} ms, {d2h} device-to-host "
+              f"copies in one launch ({smi})")
+        print(f"  fused_local_phase/{mode}: previous design "
+              f"{EARLIER_RUN_MS[mode]} ms, from an earlier run (PERF.md, "
+              f"run R), not measured here")
+        check(d2h == 1, f"one launch reads one value back (device-to-host "
+              f"copies seen: {d2h})")
     profile(ms_query, "ms query")
     profile(cc_query, "cc query")
     for k, v in numbers.items():

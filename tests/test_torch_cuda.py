@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.data import chains
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_local_phase as kmod, ops, ref
 from repro_torch.kernels import block_pathcompress as bpc_mod
@@ -83,6 +84,64 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         kmod.fused_local_phase(field.transpose(0, 2), 6)
     with pytest.raises(ValueError, match="self_mask"):
         kmod.fused_local_phase(field, 6, self_mask=smask[:2])
+
+
+# --- long chains: the resolve pass's worst cases -----------------------------
+
+
+def _long_chain_field(make, shape, flip, device):
+    field = getattr(chains, make)(shape, device=device)
+    return (field.flip((1, 2)) if flip else field).contiguous()
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("make,flip,shape,mode,conn,block_x,min_rounds", [
+    ("serpentine_order", False, (4, 64, 64), "manifold", 6, 1, 13),
+    ("serpentine_order", True, (4, 64, 64), "manifold", 6, 1, 13),
+    ("serpentine_order", False, (3, 256, 256), "manifold", 6, 2, 17),
+    ("z_ramp_order", False, (6, 32, 700), "manifold", 6, 4, 11),
+    ("z_ramp_order", True, (6, 32, 700), "manifold", 26, 8, 11),
+    ("z_line_mask", False, (5, 6, 1000), "cc", 6, 2, 11),
+    ("z_line_mask", False, (5, 6, 1000), "cc", 26, 8, 11)])
+def test_kernel_vs_plain_long_chains(cuda, make, flip, shape, mode, conn,
+                                     block_x, min_rounds, id_dtype):
+    """Chains of thousands of hops in one slab, both directions of the ids
+    (`repro_torch.data.chains`): pointers and rounds exactly equal, and a
+    second launch on the same input gives the same result (the resolve
+    pass's races between threads are benign)."""
+    field = _long_chain_field(make, shape, flip, cuda)
+    want, wrounds = ref.fused_local_phase_ref(field, conn, mode=mode,
+                                              block_x=block_x,
+                                              id_dtype=id_dtype)
+    assert wrounds >= min_rounds
+    for _ in range(2):
+        got, rounds = kmod.fused_local_phase(field, conn, mode=mode,
+                                             block_x=block_x,
+                                             id_dtype=id_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == id_dtype
+        assert torch.equal(got, want) and rounds == wrounds
+
+
+@pytest.mark.parametrize("mode", ["manifold", "cc"])
+def test_kernel_repeat_launches_on_a_smooth_field(cuda, mode):
+    """A Perlin field at 96^3 (chains of tens of hops in every direction),
+    its top-30% mask for cc, with a self_mask: five launches, each equal to
+    the plain version."""
+    from repro_torch.core.ids import compute_order
+    from repro_torch.data import perlin_noise, quantile
+    field = perlin_noise((96, 96, 96), frequency=0.1, seed=3, device=cuda)
+    field = compute_order(field) if mode == "manifold" else \
+        field > quantile(field, 0.7)
+    smask = torch.rand(field.shape, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda) < 0.01
+    want, wrounds = ref.fused_local_phase_ref(field, 6, mode=mode,
+                                              self_mask=smask)
+    for _ in range(5):
+        got, rounds = kmod.fused_local_phase(field, 6, mode=mode,
+                                             self_mask=smask)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and rounds == wrounds
 
 
 # --- the four stand-alone kernels --------------------------------------------

@@ -8,6 +8,11 @@ X), and to the Pallas kernel itself in interpret mode on a subset (each
 interpret compile takes about a second).  Tolerance: pointers and rounds
 exactly equal.  The CUDA kernel is held to the same plain version on the
 card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
+
+The CUDA kernel does not run the plain version's synchronous rounds: it
+chases every chain once and reports 1 + ceil(log2(longest chain's hops)).
+The round-rule tests below hold that premise against the plain version on
+the ragged corpus and on the long-chain fields, with a numpy chase.
 """
 import numpy as np
 import pytest
@@ -21,7 +26,9 @@ import repro.core.steepest as jst
 from repro.kernels import ops as j_ops, ref as jref
 from repro.kernels.fused_local_phase import fused_local_phase as j_kernel
 from repro.core.pathcompress import path_compress as j_path_compress
-from repro_torch.kernels import ops
+from oracles import GRID_SEED_CORPUS, ragged_grid_case
+from repro_torch.data import chains
+from repro_torch.kernels import ops, ref as kref
 from repro_torch.kernels import fused_local_phase as kmod
 from repro_torch.core.pathcompress import path_compress
 from repro_torch.core.steepest import grid_steepest, grid_mask_argmax
@@ -180,3 +187,103 @@ def test_entry_point_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         perlin_noise((4, 4, 4))
     assert topology.submit(req, device="cpu").segmentation.device.type == "cpu"
+
+
+# --- the round rule: what the CUDA kernel's single resolve pass relies on ---
+
+
+def _hop_chase(p, tsize):
+    """Hops H and end pointer of every voxel of the flat init pointers p,
+    by a memoised chase: H(i) = 1 if p(i) is negative, outside i's
+    `tsize`-voxel slab or a root (p(p(i)) == p(i)), else 1 + H(p(i)); the
+    end is the pointer of the chain's last in-slab voxel."""
+    hops = np.zeros(p.size, np.int64)
+    end = np.empty_like(p)
+    for i in range(p.size):
+        path, j = [], i
+        while not hops[j]:
+            q = p[j]
+            lo = j - j % tsize
+            if q < lo or q >= lo + tsize or p[q] == q:
+                hops[j], end[j] = 1, q
+                break
+            path.append(j)
+            j = q
+        for k in reversed(path):
+            hops[k], end[k] = hops[p[k]] + 1, end[p[k]]
+    return hops, end
+
+
+def _assert_round_rule(field, conn, mode, smask, block_x):
+    """The plain version's synchronous doubling ends at the chase's end
+    pointers after 1 + ceil(log2(max H)) rounds, within its round cap."""
+    t = torch.from_numpy(np.ascontiguousarray(field))
+    sm = None if smask is None else torch.from_numpy(smask)
+    want, rounds = kref.fused_local_phase_ref(t, conn, mode=mode,
+                                              self_mask=sm, block_x=block_x)
+    p = kref.local_phase_init(t, conn, mode, sm).numpy()
+    tsize = block_x * (p.size // field.shape[0])
+    hops, end = _hop_chase(p, tsize)
+    np.testing.assert_array_equal(end, want.numpy().reshape(-1))
+    assert rounds == 1 + (int(hops.max()) - 1).bit_length()
+    assert rounds <= kref.max_saturation_rounds(tsize)
+    return rounds
+
+
+@pytest.mark.parametrize("conn_index", [0, 1])
+@pytest.mark.parametrize("seed", GRID_SEED_CORPUS)
+def test_round_rule_on_the_ragged_corpus(seed, conn_index):
+    """`ragged_grid_case` shapes (3-D ones with connectivities 6 and 26,
+    2-D ones with 4 and 6), both modes, self_mask off and on, block_x
+    1/3/8."""
+    shape, _, _, mask_p = ragged_grid_case(seed)
+    conn = ((6, 26) if len(shape) == 3 else (4, 6))[conn_index]
+    rng = np.random.default_rng(seed)
+    fields = {"manifold": rng.permutation(int(np.prod(shape))).reshape(
+        shape).astype(np.int32), "cc": rng.random(shape) < mask_p}
+    smask = rng.random(shape) < 0.2
+    for mode, field in fields.items():
+        for sm in (None, smask):
+            for block_x in (1, 3, 8):
+                _assert_round_rule(field, conn, mode, sm, block_x)
+
+
+def _long_chain_field(make, shape, flip):
+    field = getattr(chains, make)(shape, device="cpu")
+    return (field.flip((1, 2)) if flip else field).contiguous().numpy()
+
+
+@pytest.mark.parametrize("conn", [6, 26])
+@pytest.mark.parametrize("make,flip,shape,mode,block_x", [
+    ("serpentine_order", False, (2, 32, 32), "manifold", 1),
+    ("serpentine_order", True, (2, 32, 32), "manifold", 1),
+    ("z_ramp_order", False, (5, 6, 40), "manifold", 3),
+    ("z_ramp_order", True, (5, 6, 40), "manifold", 8),
+    ("z_line_mask", False, (4, 4, 50), "cc", 3)])
+def test_round_rule_on_long_chains(make, flip, shape, mode, block_x, conn):
+    """The long-chain fields of `repro_torch.data.chains` (flipped along y
+    and z: chains to falling ids), with and without a self_mask."""
+    field = _long_chain_field(make, shape, flip)
+    smask = np.random.default_rng(block_x).random(shape) < 0.05
+    for sm in (None, smask):
+        _assert_round_rule(field, conn, mode, sm, block_x)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_serpentine_chain_covers_half_a_slab(flip):
+    """At (4, 64, 64) with block_x 1 the path of a plane is 2079 voxels long:
+    a chain of 2079 hops, 13 rounds (the cap of a 4096-voxel slab), in
+    either direction of the ids."""
+    field = _long_chain_field("serpentine_order", (4, 64, 64), flip)
+    assert _assert_round_rule(field, 6, "manifold", None, 1) == 13
+
+
+def test_kernel_refuses_a_slab_of_2_31_voxels():
+    """The kernel's slab-local indices are int32: the wrapper raises before
+    it touches the tensor (a meta tensor here), counting min(block_x, X)
+    planes."""
+    big = torch.empty((4, 2**16, 2**14), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        kmod.fused_local_phase(big, 6, block_x=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmod.fused_local_phase(big[:1], 6, block_x=8)
