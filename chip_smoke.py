@@ -32,12 +32,13 @@ seconds:
      version on ragged cases and at full size (the grid_512 order field and
      its steepest pointers; BST's multihot table at the serve_bulk batch;
      llama3.2-1b attention widths at 32k, batch cut from 32 to 1, bf16 on
-     the tensor-core kernel and f32 on the CUDA-core one; D = 320 on the
-     CUDA-core kernel in both dtypes), then the `ops` path with every
-     launch counter set to 0 just before and read just after, its results
-     checked against the compared ones, and the kernel, plain, bound and
-     library times, attention's TFLOP/s and the tensor-core kernel's
-     ptxas registers and spills.
+     the tensor-core kernel and f32 on the one with P V on the tensor cores
+     in 3xTF32; D = 320 on the CUDA-core kernel in both dtypes), then the
+     `ops` path with every launch counter set to 0 just before and read
+     just after, its results checked against the compared ones, and the
+     kernel, plain, bound and library times (SDPA's flash backend for bf16,
+     its memory-efficient one for f32), attention's TFLOP/s and the two
+     tensor-core kernels' ptxas registers and spills.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -57,8 +58,14 @@ SEED = 42                      # Perlin seed of the main path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores,
                                # taken for the kernel's 32-bit compares
-FLOPS_PER_S = {"bfloat16": 989e12,   # dense bf16 tensor-core rate
-               "float32": 67e12}     # fp32 outside the tensor cores
+# attention's rate by `flash_attention.route`, in fp32-equivalent flops:
+# the dense bf16 tensor-core rate; for fp32 a third of the dense TF32 rate
+# (494.7 TFLOP/s), since fp32-accurate products take three TF32 ones
+# (3xTF32), the least time fp32-accurate attention can take on the card;
+# fp32 outside the tensor cores, the bound of fp32 attention before it ran
+# on the tensor cores
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 494.7e12 / 3,
+               "float32_cuda_cores": 67e12}
 RAGGED = (97, 61, 43)
 # (field, flipped along y and z, shape, mode, block_x, ids): chains of up to
 # ~131,000 hops (serpentine, one 512 x 512 plane a slab) and ~1,030 hops
@@ -75,6 +82,10 @@ LONG_CHAINS = (("serpentine_order", False, (8, 512, 512), "manifold", 1, None),
 # 700 W, read by this script in an earlier run (PERF.md, run R); printed
 # for reference, never part of the measured results
 EARLIER_RUN_MS = {"manifold": 11.519, "cc": 10.124}
+# the previous design of f32 attention (flash_fwd, a warp per query row on
+# the CUDA cores) at the phase-7 shape, same card and power limit, read by
+# this script in an earlier run (PERF.md, run T); printed for reference only
+EARLIER_FLASH_F32_MS = 726.057
 # BST (configs/bst.py): two multihot fields of 500,000 rows, embed_dim 32,
 # 16 ids a bag; serve_bulk's batch
 BAG_V, BAG_D, BAG_B, BAG_L = 2 * 500_000, 32, 262_144, 16
@@ -287,6 +298,7 @@ def standalone_kernels(order, conn, smi):
 
     attn = {}
     attn_out = {}
+    attn_plain = {}                    # f32: kept for SDPA's difference
     for dt in ("bfloat16", "float32"):
         for shape in ((1, 4, 2, 256, 128, 64), (1, 4, 2, 256, 256, 112)):
             q, k, v = qkv(*shape, dt)      # Sk < Sq: 128 rows see no key
@@ -296,10 +308,14 @@ def standalone_kernels(order, conn, smi):
             n_cases += 1
         # D = 320: the CUDA-core kernel in both dtypes, two column chunks
         q, k, v = qkv(1, 4, 2, 96, 64, 320, dt)
+        key = f"{dt}_cuda_cores"
+        before = flash_mod.launches[key]
         close(flash_mod.flash_attention(q, k, v, causal=True),
               ref.flash_attention_kernel_ref(q, k, v, causal=True),
               TOL[dt]["attn"], f"flash_attention (1, 4, 2, 96, 64, 320) "
               f"causal {dt}")
+        check(flash_mod.launches[key] == before + 1,
+              f"D = 320 {dt} ran the CUDA-core kernel ({key})")
         n_cases += 1
         attn[dt] = qkv(ATTN_B, ATTN_H, ATTN_HKV, ATTN_S, ATTN_S, ATTN_D, dt)
         attn_out[dt] = flash_mod.flash_attention(*attn[dt], causal=True)
@@ -311,6 +327,8 @@ def standalone_kernels(order, conn, smi):
         err[f"flash_attention/{dt}"] = close(
             attn_out[dt], want, tol,
             f"flash_attention llama3.2-1b 32k causal {dt}")
+        if dt == "float32":
+            attn_plain[dt] = want
         del want
     print(f"  {n_cases} ragged/small cases and 6 full-size cases: kernel == "
           f"plain (pointers exactly; bags within 1e-5 f32 / 3e-2 bf16; "
@@ -340,11 +358,14 @@ def standalone_kernels(order, conn, smi):
           and launches["segment_bag"] == {"float32": 1, "bfloat16": 1}
           and launches["flash_attention"]["float32"] == 1,
           "the ops path launched each stand-alone kernel once")
-    check(launches["flash_attention"] == {"float32": 1, "bfloat16": 1,
+    check(launches["flash_attention"] == {"float32": 1,
+                                          "float32_cuda_cores": 0,
+                                          "bfloat16": 1,
                                           "bfloat16_cuda_cores": 0}
-          and flash_mod.route(torch.bfloat16, ATTN_D) == "bfloat16",
-          "the ops path's bf16 attention ran the tensor-core kernel, once, "
-          "and no other kernel")
+          and flash_mod.route(torch.bfloat16, ATTN_D) == "bfloat16"
+          and flash_mod.route(torch.float32, ATTN_D) == "float32",
+          "the ops path's attention ran each dtype's tensor-core kernel, "
+          "once, and no other kernel")
     check(torch.equal(got["steepest"].reshape(-1), ptr)
           and torch.equal(got["bpc"], ref.block_pathcompress_kernel_ref(
               ptr, 4, 4096)), "ops pointers == the plain versions'")
@@ -421,34 +442,53 @@ def standalone_kernels(order, conn, smi):
     from torch.nn.attention import SDPBackend, sdpa_kernel
     pairs = ATTN_S * (ATTN_S + 1) // 2           # visible (q, k) pairs
     flops = 4 * ATTN_B * ATTN_H * ATTN_D * pairs
-    tc_ptxas = ptxas_report(_build.build_log("flash_attention"),
-                            "flash_tc")
-    check(len(tc_ptxas) == 3, f"ptxas reports the three tensor-core "
-          f"instances (Dp 64, 128, 256): {tc_ptxas}")
-    for name, rep in tc_ptxas.items():
-        print(f"  ptxas {name}: {rep}")
+    log = _build.build_log("flash_attention")
+    ptxas = {"bfloat16": ptxas_report(log, "flash_tc"),
+             "float32": ptxas_report(log, "flash_f32tc")}
+    check(len(ptxas["bfloat16"]) == 3 and len(ptxas["float32"]) == 2,
+          f"ptxas reports the tensor-core instances (bf16 Dp 64, 128, 256; "
+          f"f32 Dp 64, 128): {ptxas}")
+    for reports in ptxas.values():
+        for name, rep in reports.items():
+            print(f"  ptxas {name}: {rep}")
     designs = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, "
                "ldmatrix, cp.async x2 (two-stage K/V ring), P as bf16 hi + "
                "lo (two PV mma); D = 64: 128 query rows x 64 keys a CTA of "
                "4 warps",
-               "float32": "CUDA cores: warp per query row, 32-key fp32 "
-               "tiles in shared memory"}
+               "float32": "QK^T on the CUDA cores (one fma chain over D per "
+               "score, the reference's order; float4 shared loads), P V on "
+               "the tensor cores in 3xTF32 (mma.sync m16n8k8, P and V split "
+               "into TF32 big + small in registers, 12 mma a part that O "
+               "takes in by an fp32 add), cp.async x2 (two-stage K/V ring); "
+               "D = 64: 128 query rows x 64 keys a CTA of 4 warps"}
+
+    def sdpa_call(dt, q, k, v):
+        """One SDPA call for the same function at Sq == Sk (its causal mask
+        is top-left aligned), never the math backend, which would hold the
+        32k x 32k scores (137 GB).  Returns (call, how GQA is given)."""
+        if dt == "bfloat16":
+            def call():
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+            return call, "enable_gqa"
+        # the memory-efficient backend refuses enable_gqa: K and V expanded
+        # to H heads here, outside the timed call
+        k_h, v_h = (t.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+                    for t in (k, v))
+
+        def call():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(q, k_h, v_h,
+                                                      is_causal=True)
+        return call, "K and V repeat_interleave'd to H"
+
     for dt in ("bfloat16", "float32"):
         q, k, v = attn[dt]
         size = q.element_size()
-        extra = {"design": designs[dt]}
-        if dt == "bfloat16":
-            extra["ptxas"] = tc_ptxas
-
-        def sdpa():
-            # SDPA's causal mask is top-left aligned: equal only at Sq == Sk.
-            # Without the math backend, which would hold the 32k x 32k
-            # scores (137 GB); GQA runs only on the flash backend (fp16/bf16)
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
-
-        lib = sdpa if dt == "bfloat16" else None
+        lib, gqa = sdpa_call(dt, q, k, v)
+        extra = {"design": designs[dt], "ptxas": ptxas[dt],
+                 "library_gqa": gqa}
         entry(f"flash_attention/{dt}", "flash_attention", 87,
               launches["flash_attention"][dt], err[f"flash_attention/{dt}"],
               lambda: ops.flash_attention(q, k, v, causal=True),
@@ -457,19 +497,25 @@ def standalone_kernels(order, conn, smi):
               flops, FLOPS_PER_S[dt], lib, **extra)
         row = kernels[-1]
         row["tflops"] = flops / row["ms"] / 1e9
-        lib_rate = ("" if lib is None else
-                    f", SDPA {flops / row['library_ms'] / 1e9:.1f} TFLOP/s")
-        print(f"    {row['tflops']:.1f} TFLOP/s ({flops:.4e} flops; the "
-              f"bound's {FLOPS_PER_S[dt] / 1e12:.0f} TFLOP/s in "
-              f"{row['bound_ms']:.3f} ms{lib_rate}; {row['design']})")
-        if lib is None:
-            print("    library: none - SDPA runs GQA only on its flash "
-                  "backend (fp16/bf16) and its math backend, which would "
-                  "hold the 32k x 32k fp32 scores (137 GB)")
-        else:
-            e = float((sdpa().float() - attn_out[dt].float()).abs().max())
-            print(f"    SDPA vs kernel: max abs difference {e} (not a "
-                  "check: SDPA tiles and rounds P in its own way)")
+        print(f"    {row['tflops']:.1f} TFLOP/s fp32-equivalent ({flops:.4e} "
+              f"flops; the bound's {FLOPS_PER_S[dt] / 1e12:.1f} TFLOP/s in "
+              f"{row['bound_ms']:.3f} ms; SDPA "
+              f"{flops / row['library_ms'] / 1e9:.1f} TFLOP/s, GQA by "
+              f"{gqa}; {row['design']})")
+        if dt == "float32":
+            cuda_cores = flops / FLOPS_PER_S["float32_cuda_cores"] * 1e3
+            print(f"    bound: 3xTF32 at 494.7 TFLOP/s {row['bound_ms']:.3f} "
+                  f"ms; derived, not measured: the fp32 CUDA-core figure "
+                  f"(67 TFLOP/s, the earlier bound) {cuda_cores:.3f} ms, this "
+                  f"design's floor (QK^T on the CUDA cores) "
+                  f"{cuda_cores / 2:.3f} ms; the previous design took "
+                  f"{EARLIER_FLASH_F32_MS} ms in an earlier run (PERF.md, "
+                  f"run T), not measured here")
+        want, what = ((attn_plain.pop(dt), "plain") if dt in attn_plain
+                      else (attn_out[dt], "kernel"))
+        e = float((lib().float() - want.float()).abs().max())
+        print(f"    SDPA vs {what}: max abs difference {e} (not a check: "
+              "SDPA tiles and rounds in its own way)")
 
     def pointer_and_bag_calls():
         d = ops.steepest_neighbor(order, conn)
@@ -479,8 +525,9 @@ def standalone_kernels(order, conn, smi):
 
     profile(pointer_and_bag_calls, "ops path: steepest_neighbor + "
             "block_pathcompress + embedding_bag f32 and bf16")
-    profile(lambda: ops.flash_attention(*attn["bfloat16"], causal=True),
-            "ops path: flash_attention bf16")
+    for dt in ("bfloat16", "float32"):
+        profile(lambda: ops.flash_attention(*attn[dt], causal=True),
+                f"ops path: flash_attention {dt}")
     phase("stand-alone numbers", t0)
     return kernels
 

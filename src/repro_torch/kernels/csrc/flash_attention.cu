@@ -19,7 +19,7 @@
 // key, as that row must average all of V.  Keys past Sk add nothing (p = 0,
 // not -1e30).  Causal CTAs are issued longest first (reversed q-tile order).
 //
-// Two kernels:
+// Three kernels:
 //
 // flash_tc, bf16 with D <= 256, on the tensor cores (FA2-style), templated
 // on the padded head dim Dp = 64, 128 or 256.  A CTA of 4 warps holds the
@@ -42,7 +42,37 @@
 // comes through ldmatrix.trans, O stays fp32 in registers; l sums the fp32
 // p.  The epilogue goes through shared memory to 16-byte stores.
 //
-// flash_fwd, on the CUDA cores, fp32 throughout: f32 inputs for every D,
+// flash_f32tc, f32 with D <= 128, Dp = 64 or 128, in flash_tc's frame
+// (4 warps, 32 query rows a warp at Dp = 64 and 16 at 128, key tiles of 64,
+// a two-stage cp.async ring; fp32 rows padded to Dp + 4 words, which keeps
+// its 16-byte Q and K reads and 4-byte V reads free of bank conflicts).
+// q is scaled in fp32 in shared memory, as the reference scales it.
+// QK^T runs on the CUDA cores: each lane holds S's mma C fragment (rows g,
+// g + 8; keys 2tq, 2tq + 1 of each 8) and sums every score as one fma chain
+// over d = 0, 1, ..., the order of the reference's fp32 product.  The tensor
+// cores cannot keep that order (an mma sums 8 products at once), and at
+// scores of hundreds the reference's own fp32 sums are already past 2e-5
+// of the exact result, so a kernel in any other order misses 2e-5 of the
+// reference (tests/test_torch_kernels.py models it; on the card,
+// src/repro_torch/bench/flash_f32_ab.py finds the reference's cuBLAS
+// product equal to this fma chain bit for bit, and QK^T in 3xTF32 on the
+// tensor cores faster but past 2e-5 of it there).  The online softmax
+// keeps the scores as they are and takes exp(s - m) as exp2((s - m)
+// log2(e)) on the SFU (ex2.approx), so the rounding of s log2(e) at large
+// scores does not enter p.  O += P V runs on the tensor cores in 3xTF32:
+// P (in registers: S's C fragment is the A fragment of mma.sync m16n8k8
+// when the mma's k index tq stands for key 2tq and tq + 4 for key 2tq + 1)
+// and V (read per fragment from shared memory) are each split into TF32
+// parts, big = tf32(x) and small = tf32(x - big), rounded to nearest with
+// ties away from zero, and P_small V_big + P_big V_small + P_big V_big sum
+// to ~2^-22 of each p v; one TF32 product (~2^-11) misses 2e-5 at every
+// size.  The mma's fp32 accumulation is not rounded to nearest: chained
+// over a 32k-key row it drifts toward zero, to 0.8 of the 2e-5 limit, so
+// each 4 key groups (12 mma) sum in a zeroed part that O takes in by an
+// fp32 add.  Splitting V once a CTA into shared memory, in place of per
+// fragment, was measured slower (src/repro_torch/bench/flash_f32_ab.py).
+//
+// flash_fwd, on the CUDA cores, fp32 throughout: f32 inputs with D > 128,
 // and bf16 with D > 256.  A CTA of 8 warps takes 8 consecutive query rows of
 // one (b, h), one warp per row, and one chunk of up to 256 output columns
 // (gridDim.z chunks).
@@ -56,10 +86,13 @@
 //
 // Bound: operations.  4 * B * H * D flops per visible (query, key) pair
 // (QK^T and PV), over 989 TFLOP/s for bf16 inputs (the card's dense bf16
-// tensor rate) or 67 TFLOP/s for fp32 (its fp32 rate outside the tensor
-// cores); q, k, v and o move once (0.34 GB at B=1, H=32, Hkv=8, D=64, 32k).
-// mma.sync runs below the wgmma rate that the bf16 bound assumes; wgmma,
-// TMA and warp specialisation are the next step.  The fp32 kernel issues
+// tensor rate) or, for fp32, a third of its dense TF32 rate (494.7 TFLOP/s:
+// fp32-accurate products take three TF32 ones); q, k, v and o move once
+// (0.34 GB at B=1, H=32, Hkv=8, D=64, 32k).  mma.sync runs below the wgmma
+// rate that the bounds assume; wgmma, TMA and warp specialisation are the
+// next step.  flash_f32tc's own floor is its QK^T, half the flops, at the
+// 67 TFLOP/s of the CUDA cores; its lanes also issue the TF32 splits, the
+// softmax and 16-byte shared loads (~0.08 a fma).  flash_fwd issues
 // ~(3D/32 + D/32 + 1) warp instructions per pair from shared memory, far
 // from the fp32 rate.
 //
@@ -227,8 +260,8 @@ bool valid_shapes(int B, int H, int Hkv, int Sq, int Sk, int D, int max_d) {
          Sk >= 0 && D >= 1 && D <= max_d && (int64_t)B * H <= 65535;
 }
 
-// fp32: one column chunk for D <= 256, chunks of 256 above.  bf16: the
-// chunked instance only (its entry point takes D > 256 alone).
+// fp32: one column chunk for 128 < D <= 256, chunks of 256 above.  bf16:
+// the chunked instance only (its entry point takes D > 256 alone).
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int B, int H,
         int Hkv, int Sq, int Sk, int D, float scale, int causal,
@@ -244,7 +277,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
 #define CASE(N) \
   case N:       \
     return launch<T, N>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
-      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+      CASE(5) CASE(6) CASE(7) CASE(8)  // its entry point takes D > 128
 #undef CASE
     }
   }
@@ -329,17 +362,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Rows [r0, r0 + kRows) of a row-major (n, D) matrix into a [kRows][Dp + 8]
-// shared tile; zero past row n and past column D.  vec: 16-byte cp.async
-// (D % 8 == 0, 16-byte aligned base), else element loads.
-template <int Dp, int kRows>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0,
-                                          int n, int D, bool vec) {
-  constexpr int kStride = Dp + 8;
+// Rows [r0, r0 + kRows) of a row-major (n, D) matrix into a [kRows][kStride]
+// shared tile of Dp columns; zero past row n and past column D.  vec:
+// 16-byte cp.async (D a multiple of 16 bytes' elements, 16-byte aligned
+// base), else element loads.
+template <int Dp, int kRows, int kStride = Dp + 8, typename T>
+__device__ __forceinline__ void load_tile(T* s, const T* g, int r0, int n,
+                                          int D, bool vec) {
   if (vec) {
-    constexpr int kChunks = Dp / 8;
+    constexpr int kVec = 16 / sizeof(T), kChunks = Dp / kVec;
     for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int r = i / kChunks, c = (i % kChunks) * kVec;
       const bool in = r0 + r < n && c < D;
       cp_async16(smem_u32(s + r * kStride + c),
                  in ? g + (int64_t)(r0 + r) * D + c : g, in ? 16 : 0);
@@ -347,24 +380,28 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0,
   } else {
     for (int i = threadIdx.x; i < kRows * Dp; i += kTcThreads) {
       const int r = i / Dp, c = i % Dp;
-      s[r * kStride + c] = r0 + r < n && c < D
-                               ? g[(int64_t)(r0 + r) * D + c]
-                               : __float2bfloat16(0.f);
+      s[r * kStride + c] =
+          r0 + r < n && c < D ? g[(int64_t)(r0 + r) * D + c]
+                              : from_float<T>(0.f);
     }
   }
 }
 
-// One key tile of the online softmax for the warp's rows, in the log2
-// domain: x = score * scale * log2(e), m the running max, p = exp2(x - m)
-// (p is left in s), l the lane's part of the row sum, O rescaled by
-// exp2(m_old - m).  kCheck: apply the causal mask (diag) and p = 0 past Sk.
-template <bool kCheck, int Dp>
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[TcTiles<Dp>::kM][TcTiles<Dp>::kN / 8][4],
-    float (&m)[TcTiles<Dp>::kM][2], float (&l)[TcTiles<Dp>::kM][2],
-    float (&acc)[TcTiles<Dp>::kM][Dp / 8][4], float scale_log2, bool diag,
-    int qpos0, int j0, int Sk, int tq) {
-  constexpr int kM = TcTiles<Dp>::kM, kN = TcTiles<Dp>::kN;
+// One key tile of the online softmax for the warp's rows: m the running
+// max, p = exp(score - m) (p is left in s), l the lane's part of the row
+// sum, O rescaled by exp(m_old - m).  kNatural: s holds scores already
+// scaled (q was), m is in their units and exp(x) = exp2(x log2(e)) of the
+// difference, which stays exact where p matters (fp32 at large scores);
+// else x = s * scale_log2 and m are in the log2 domain (bf16).  kCheck:
+// apply the causal mask (diag) and p = 0 past Sk.
+template <bool kCheck, int kM, int kN, int Dp, bool kNatural = false>
+__device__ __forceinline__ void softmax_tile(float (&s)[kM][kN / 8][4],
+                                             float (&m)[kM][2],
+                                             float (&l)[kM][2],
+                                             float (&acc)[kM][Dp / 8][4],
+                                             float scale_log2, bool diag,
+                                             int qpos0, int j0, int Sk,
+                                             int tq) {
 #pragma unroll
   for (int i = 0; i < kM; ++i) {
 #pragma unroll
@@ -376,7 +413,8 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = j0 + 8 * j + 2 * tq + e;
-          float x = s[i][j][2 * r + e] * scale_log2;
+          float x = kNatural ? s[i][j][2 * r + e]
+                             : s[i][j][2 * r + e] * scale_log2;
           if (kCheck && diag && kpos > qpos) x = kMasked;
           s[i][j][2 * r + e] = x;
           if (!kCheck || kpos < Sk) mx = fmaxf(mx, x);
@@ -384,7 +422,8 @@ __device__ __forceinline__ void softmax_tile(
       }
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float corr = fast_exp2(m[i][r] - mx);
+      const float corr = kNatural ? fast_exp2((m[i][r] - mx) * kLog2e)
+                                  : fast_exp2(m[i][r] - mx);
       m[i][r] = mx;
       float sum = 0.f;
 #pragma unroll
@@ -392,9 +431,10 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = j0 + 8 * j + 2 * tq + e;
+          const float x = s[i][j][2 * r + e] - mx;
           const float p = kCheck && kpos >= Sk
                               ? 0.f
-                              : fast_exp2(s[i][j][2 * r + e] - mx);
+                              : fast_exp2(kNatural ? x * kLog2e : x);
           s[i][j][2 * r + e] = p;
           sum += p;
         }
@@ -528,11 +568,11 @@ __global__ void __launch_bounds__(kTcThreads)
     // the diagonal or passes Sk
     const bool diag = causal && j0 + kN - 1 > row0 + off;
     if (diag || j0 + kN > Sk)
-      softmax_tile<true, Dp>(s, m, l, acc, scale_log2, diag, qpos0, j0, Sk,
-                             tq);
+      softmax_tile<true, kM, kN, Dp>(s, m, l, acc, scale_log2, diag, qpos0,
+                                     j0, Sk, tq);
     else
-      softmax_tile<false, Dp>(s, m, l, acc, scale_log2, false, qpos0, j0, Sk,
-                              tq);
+      softmax_tile<false, kM, kN, Dp>(s, m, l, acc, scale_log2, false, qpos0,
+                                      j0, Sk, tq);
 
     // O += P V as P_hi V + P_lo V (split_bf16): P's A fragment for keys
     // 16kk.. is S's key groups 2kk, 2kk + 1
@@ -638,6 +678,317 @@ int run_tc(const void* q, const void* k, const void* v, void* o, int B, int H,
                         stream);
 }
 
+// --- flash_f32tc: fp32, QK^T on the CUDA cores, PV as 3xTF32 mma.sync --------
+
+constexpr int kF32TcMaxHeadDim = 128;
+// 8-key groups whose P V the tensor cores sum in a zeroed part before O
+// takes it in by an fp32 add (see f32_pv)
+constexpr int kPvGroups = 4;
+
+// Tiles by padded head dim: kM m16 row tiles a warp, kN keys a tile.  Rows
+// of Dp + 4 floats: the float4 loads of QK^T (rows g of Q, rows 2tq + e of
+// K) and the 32-bit loads of V's B fragment (rows 2tq, 2tq + 1, column g)
+// then fall in distinct banks.
+template <int Dp>
+struct F32Tiles {
+  static constexpr int kM = Dp == 64 ? 2 : 1;
+  static constexpr int kRows = 16 * kM * kTcWarps;  // query rows a CTA
+  static constexpr int kN = 64;
+  static constexpr int kStride = Dp + 4;
+  static constexpr size_t kBytes =  // Q + two stages of K and V
+      sizeof(float) * (size_t)(kRows + 4 * kN) * kStride;
+};
+
+// x rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds: half a TF32 ulp added to the magnitude's
+// bits, the 13 bits below it cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = big + small to ~2^-22 of x: big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+// c += a (16x8, row) * b (8x8, col), tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S = (q scale) K^T on the CUDA cores, each score one fma chain over d = 0,
+// 1, ..., the order of the reference's fp32 product: at large scores any
+// other order (the 8-wide sums of a tensor-core mma) moves the output past
+// 2e-5 of it.  qrow: the lane's row g of the warp's first m-tile; kt: the
+// key tile.  s[i][j] holds keys 8j + 2tq + (0, 1) of rows g, g + 8 of
+// m-tile i (the mma C layout that P V takes as A).
+template <int Dp, int kM, int kN, int kStride>
+__device__ __forceinline__ void f32_scores(float (&s)[kM][kN / 8][4],
+                                           const float* qrow, const float* kt,
+                                           int tq) {
+#pragma unroll
+  for (int i = 0; i < kM; ++i)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+      s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
+  const float* krow = kt + 2 * tq * kStride;
+#pragma unroll 1
+  for (int d = 0; d < Dp; d += 4) {
+    float4 qv[kM][2];
+#pragma unroll
+    for (int i = 0; i < kM; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        qv[i][r] = *reinterpret_cast<const float4*>(
+            qrow + (16 * i + 8 * r) * kStride + d);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            krow + (8 * j + e) * kStride + d);
+#pragma unroll
+        for (int i = 0; i < kM; ++i) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float x = s[i][j][2 * r + e];
+            x = fmaf(qv[i][r].x, kv.x, x);
+            x = fmaf(qv[i][r].y, kv.y, x);
+            x = fmaf(qv[i][r].z, kv.z, x);
+            s[i][j][2 * r + e] = fmaf(qv[i][r].w, kv.w, x);
+          }
+        }
+      }
+    }
+  }
+}
+
+// P's TF32 parts for the mma A fragment of key group j: the mma's k index
+// tq stands for key 2tq of the group and tq + 4 for key 2tq + 1, so S's C
+// fragment is P's A fragment as it stands (no shuffle)
+template <int kN>
+__device__ __forceinline__ void split_p(const float (&p)[kN / 8][4], int j,
+                                        uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  split_tf32(p[j][0], big[0], small[0]);  // row g, key 2tq
+  split_tf32(p[j][2], big[1], small[1]);  // row g + 8, key 2tq
+  split_tf32(p[j][1], big[2], small[2]);  // row g, key 2tq + 1
+  split_tf32(p[j][3], big[3], small[3]);  // row g + 8, key 2tq + 1
+}
+
+// O += P V in 3xTF32: P_small V_big + P_big V_small + P_big V_big, each part
+// rounded to TF32 (split_tf32); V's B fragment is rows 2tq, 2tq + 1 at
+// column g, split per fragment in registers.  The tensor cores sum
+// kPvGroups key groups (3 mma each) into a zeroed part, which O takes in by
+// an fp32 add: their accumulation is not rounded to nearest, and chained
+// over a 32k-key row it drifts toward the limit of the reference.
+template <int Dp, int kM, int kN, int kStride>
+__device__ __forceinline__ void f32_pv(float (&acc)[kM][Dp / 8][4],
+                                       const float (&p)[kM][kN / 8][4],
+                                       const float* vt, int g, int tq) {
+  static_assert(kN % (8 * kPvGroups) == 0, "a tile holds whole groups");
+  const float* vrow = vt + 2 * tq * kStride + g;
+#pragma unroll
+  for (int j0 = 0; j0 < kN / 8; j0 += kPvGroups) {
+    uint32_t pb[kM][kPvGroups][4], ps[kM][kPvGroups][4];
+#pragma unroll
+    for (int i = 0; i < kM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < kPvGroups; ++jj)
+        split_p<kN>(p[i], j0 + jj, pb[i][jj], ps[i][jj]);
+#pragma unroll
+    for (int dp = 0; dp < Dp / 8; ++dp) {
+      float part[kM][4] = {};
+#pragma unroll
+      for (int jj = 0; jj < kPvGroups; ++jj) {
+        const float* vg = vrow + 8 * (j0 + jj) * kStride + 8 * dp;
+        uint32_t vb0, vb1, vs0, vs1;  // big and small of the two keys
+        split_tf32(vg[0], vb0, vs0);
+        split_tf32(vg[kStride], vb1, vs1);
+#pragma unroll
+        for (int i = 0; i < kM; ++i) {
+          mma_tf32(part[i], ps[i][jj], vb0, vb1);
+          mma_tf32(part[i], pb[i][jj], vs0, vs1);
+          mma_tf32(part[i], pb[i][jj], vb0, vb1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][dp][e] += part[i][e];
+    }
+  }
+}
+
+// The epilogue: O / l into the warp's rows of shared memory os (read only by
+// this warp), then stores of its first `rows` rows to ob (16-byte if vec)
+template <int Dp, int kM, int kStride>
+__device__ __forceinline__ void f32_store(float* os, float* ob,
+                                          const float (&acc)[kM][Dp / 8][4],
+                                          const float (&l)[kM][2], int rows,
+                                          int D, bool vec) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[i][r];
+      lr += __shfl_xor_sync(kFull, lr, 1);
+      lr += __shfl_xor_sync(kFull, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < Dp / 8; ++j)
+        *reinterpret_cast<float2*>(os + (16 * i + g + 8 * r) * kStride +
+                                   8 * j + 2 * tq) =
+            make_float2(acc[i][j][2 * r] / lr, acc[i][j][2 * r + 1] / lr);
+    }
+  }
+  __syncwarp();
+  if (vec) {
+    const int chunks = D / 4;
+    for (int i = lane; i < rows * chunks; i += 32) {
+      const int r = i / chunks, c = (i % chunks) * 4;
+      *reinterpret_cast<float4*>(ob + (int64_t)r * D + c) =
+          *reinterpret_cast<const float4*>(os + r * kStride + c);
+    }
+  } else {
+    for (int i = lane; i < rows * D; i += 32) {
+      const int r = i / D, c = i % D;
+      ob[(int64_t)r * D + c] = os[r * kStride + c];
+    }
+  }
+}
+
+template <int Dp>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_f32tc(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int H,
+                int Hkv, int Sq, int Sk, int D, float scale, int causal,
+                int vec) {
+  using Tiles = F32Tiles<Dp>;
+  constexpr int kM = Tiles::kM, kRows = Tiles::kRows, kN = Tiles::kN;
+  constexpr int kStride = Tiles::kStride;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* qs = reinterpret_cast<float*>(f32_smem);  // [kRows][kStride]
+  float* ks = qs + kRows * kStride;                // [2][kN][kStride]
+  float* vs = ks + 2 * kN * kStride;               // [2][kN][kStride]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;  // fragment row and column pair
+  const int bh = blockIdx.y;              // b * H + h
+  const int64_t kvh = (int64_t)(bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int qtile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int row0 = qtile * kRows;
+  const int off = Sk - Sq;
+  int kv_end = Sk;
+  if (causal && row0 + off >= 0) {  // no fully masked row in this CTA
+    const int last = (row0 + kRows < Sq ? row0 + kRows : Sq) - 1;
+    kv_end = last + off + 1 < Sk ? last + off + 1 : Sk;
+  }
+  const int n_tiles = (kv_end + kN - 1) / kN;
+  const float* qb = q + (int64_t)bh * Sq * D;
+  const float* kb = k + kvh * Sk * D;
+  const float* vb = v + kvh * Sk * D;
+
+  load_tile<Dp, kRows, kStride>(qs, qb, row0, Sq, D, vec);
+  load_tile<Dp, kN, kStride>(ks, kb, 0, Sk, D, vec);
+  load_tile<Dp, kN, kStride>(vs, vb, 0, Sk, D, vec);
+  cp_async_commit();
+
+  const int wrow = warp * 16 * kM;  // the warp's first row in the CTA
+  // O of m-tile i: c0, c1 row g; c2, c3 row g + 8; columns 8j + 2tq + (0, 1)
+  float acc[kM][Dp / 8][4];
+#pragma unroll
+  for (int i = 0; i < kM; ++i)
+#pragma unroll
+    for (int j = 0; j < Dp / 8; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  float m[kM][2], l[kM][2];  // rows g, g + 8 of each m-tile
+#pragma unroll
+  for (int i = 0; i < kM; ++i)
+    m[i][0] = m[i][1] = kMasked, l[i][0] = l[i][1] = 0.f;
+  const int qpos0 = row0 + wrow + g + off;  // row g's last visible key
+  const float* qrow = qs + (wrow + g) * kStride;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();  // tile t (and at t = 0 Q) landed, this thread's
+    __syncthreads();      // ... and every thread's; tile t - 1 is consumed
+    if (t + 1 < n_tiles) {
+      const int st = (t + 1) & 1;
+      load_tile<Dp, kN, kStride>(ks + st * kN * kStride, kb, (t + 1) * kN,
+                                 Sk, D, vec);
+      load_tile<Dp, kN, kStride>(vs + st * kN * kStride, vb, (t + 1) * kN,
+                                 Sk, D, vec);
+      cp_async_commit();
+    }
+    if (t == 0) {  // q * scale in fp32, as the reference scales q; the
+                   // warp's own rows, which only it reads
+      float* qw = qs + wrow * kStride;
+      for (int i = lane; i < 16 * kM * Dp; i += 32)
+        qw[(i / Dp) * kStride + i % Dp] *= scale;
+      __syncwarp();
+    }
+    const int j0 = t * kN;
+    float s[kM][kN / 8][4];
+    f32_scores<Dp, kM, kN, kStride>(s, qrow, ks + (t & 1) * kN * kStride,
+                                    tq);
+    // online softmax on the scores as they are (natural domain); masks
+    // only where a tile crosses the diagonal or passes Sk
+    const bool diag = causal && j0 + kN - 1 > row0 + off;
+    if (diag || j0 + kN > Sk)
+      softmax_tile<true, kM, kN, Dp, true>(s, m, l, acc, 0.f, diag, qpos0, j0,
+                                           Sk, tq);
+    else
+      softmax_tile<false, kM, kN, Dp, true>(s, m, l, acc, 0.f, false, qpos0,
+                                            j0, Sk, tq);
+    f32_pv<Dp, kM, kN, kStride>(acc, s, vs + (t & 1) * kN * kStride, g, tq);
+  }
+  cp_async_wait_all();  // nothing may still land in qs (Sk = 0: no tile)
+
+  const int rows = Sq - row0 - wrow < 16 * kM ? Sq - row0 - wrow : 16 * kM;
+  f32_store<Dp, kM, kStride>(qs + wrow * kStride,
+                             o + ((int64_t)bh * Sq + row0 + wrow) * D, acc, l,
+                             rows, D, vec);
+}
+
+template <int Dp>
+int launch_f32tc(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int Hkv, int Sq, int Sk, int D, float scale,
+                 int causal, cudaStream_t stream) {
+  using Tiles = F32Tiles<Dp>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32tc<Dp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tiles::kBytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = D % 4 == 0 &&
+                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                    (uintptr_t)o) % 16 == 0;
+  const dim3 grid((Sq + Tiles::kRows - 1) / Tiles::kRows, B * H);
+  flash_f32tc<Dp><<<grid, kTcThreads, Tiles::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk, D,
+      scale, causal, vec);
+  return cudaGetLastError();
+}
+
+int run_f32tc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+              cudaStream_t stream) {
+  if (!valid_shapes(B, H, Hkv, Sq, Sk, D, kF32TcMaxHeadDim))
+    return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  if (D <= 64)
+    return launch_f32tc<64>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
+                            stream);
+  return launch_f32tc<128>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
+                           stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -646,10 +997,21 @@ extern "C" {
 // point's dtype.  scale: 1/sqrt(D) as fp32.  causal: 0 or 1.  Returns a
 // cudaError_t (cudaErrorInvalidValue for a D the kernel does not take).
 
-// CUDA cores, D <= 1247
+// fp32, D <= 128: QK^T on the CUDA cores, PV on the tensor cores (3xTF32)
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Hkv, int Sq, int Sk, int D,
                         float scale, int causal, void* stream) {
+  return run_f32tc(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// CUDA cores, 128 < D <= 1247: the head dims flash_attention_f32 does not
+// take, and no other (cudaErrorInvalidValue)
+int flash_attention_f32_cuda_cores(const void* q, const void* k,
+                                   const void* v, void* o, int B, int H,
+                                   int Hkv, int Sq, int Sk, int D,
+                                   float scale, int causal, void* stream) {
+  if (D <= kF32TcMaxHeadDim) return cudaErrorInvalidValue;
   return run<float>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
                     static_cast<cudaStream_t>(stream));
 }

@@ -9,9 +9,14 @@ runs (`route`):
 
 * bfloat16, D <= 256: `flash_tc`, on the tensor cores (mma.sync m16n8k16,
   fp32 accumulation, P as two bf16 parts, a two-stage cp.async ring);
-* bfloat16, 256 < D <= 1247, and float32, D <= 1247: `flash_fwd`, on the
-  CUDA cores (fp32 throughout; bf16 tensor cores cannot meet fp32's
-  tolerance), output columns split over CTAs in chunks of 256;
+* float32, D <= 128: `flash_f32tc`, QK^T on the CUDA cores as one fma chain
+  over D per score (the reference's order, which large scores need to stay
+  within 2e-5) and O += P V on the tensor cores in 3xTF32 (mma.sync
+  m16n8k8, P and V each split into two TF32 parts), a two-stage cp.async
+  ring;
+* bfloat16, 256 < D <= 1247, and float32, 128 < D <= 1247: `flash_fwd`, on
+  the CUDA cores (fp32 throughout), output columns split over CTAs in
+  chunks of 256;
 * D > 1247: ValueError (the CUDA-core kernel's shared memory would pass
   227 KB).
 
@@ -28,14 +33,16 @@ import torch
 from . import _build
 from .ref import softmax_scale
 
-# kTcMaxHeadDim of csrc/flash_attention.cu: bf16 head dims up to it run
-# `flash_attention_bf16`, those above `flash_attention_bf16_cuda_cores`;
-# each entry point rejects the other's
+# kTcMaxHeadDim and kF32TcMaxHeadDim of csrc/flash_attention.cu: head dims
+# up to them run the tensor-core entry point of their dtype, those above its
+# `_cuda_cores` one; each entry point rejects the other's
 TC_MAX_HEAD_DIM = 256
+F32_TC_MAX_HEAD_DIM = 128
 MAX_HEAD_DIM = 1247        # 4 (32 (D + 1) + 32 * 256 + 8 D) bytes <= 227 KB
 DTYPES = (torch.float32, torch.bfloat16)
 # C entry point of each kernel, by its `launches` key
 SYMBOLS = {"float32": "flash_attention_f32",
+           "float32_cuda_cores": "flash_attention_f32_cuda_cores",
            "bfloat16": "flash_attention_bf16",
            "bfloat16_cuda_cores": "flash_attention_bf16_cuda_cores"}
 
@@ -48,10 +55,11 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that a CUDA call with this dtype and head dim runs, as
-    its `launches` key: "bfloat16" (tensor cores, D <= 256), or "float32" /
-    "bfloat16_cuda_cores" (CUDA cores)."""
+    its `launches` key: "bfloat16" (tensor cores, D <= 256), "float32"
+    (PV on the tensor cores, D <= 128), or "float32_cuda_cores" /
+    "bfloat16_cuda_cores" (CUDA cores, the head dims above)."""
     if dtype == torch.float32:
-        return "float32"
+        return "float32" if d <= F32_TC_MAX_HEAD_DIM else "float32_cuda_cores"
     if dtype == torch.bfloat16:
         return "bfloat16" if d <= TC_MAX_HEAD_DIM else "bfloat16_cuda_cores"
     raise ValueError(f"q must be float32 or bfloat16, got {dtype}")

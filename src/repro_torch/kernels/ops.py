@@ -131,8 +131,9 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
     As in JAX, ``Sq % min(block_q, Sq)`` and ``Sk % min(block_k, Sk)`` must
     be 0 (ValueError here, an assertion there); the CUDA kernel tiles on its
     own.  "auto"/"kernel": a CUDA kernel (bfloat16 with D <= 256 on the
-    tensor cores, float32 and wider bfloat16 up to D = 1247 on the CUDA
-    cores; `flash_attention.route`), or its plain version, for any D, on a
+    tensor cores, float32 with D <= 128 with P V on them in 3xTF32, wider
+    float32 and bfloat16 up to D = 1247 on the CUDA cores;
+    `flash_attention.route`), or its plain version, for any D, on a
     CPU tensor under "auto"; both give a fully masked causal row the mean
     of V.  impl="ref": JAX's chunked oracle
     `ref.flash_attention_ref`, NaN on such rows.

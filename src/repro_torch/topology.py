@@ -164,9 +164,15 @@ def _submit_ms(req, device) -> TopologyResult:
 
 def _submit_sweep(req, device) -> TopologyResult:
     """CC of `field > t` for every threshold t, one field; the JAX facade
-    vmaps over thresholds, the port loops and stacks."""
+    vmaps over thresholds, the port loops and stacks.  No threshold gives
+    int32 labels of shape (0, *field.shape) and runs no CC, as JAX's vmap
+    over zero rows does."""
     thr = canonical_tensor(req.thresholds, device).reshape(-1)
     field = canonical_tensor(req.field, device)
+    if thr.numel() == 0:
+        empty = torch.empty((0, *field.shape), dtype=torch.int32,
+                            device=device)
+        return TopologyResult("threshold_sweep", labels=empty, tag=req.tag)
     labels = torch.stack([
         connected_components_grid(field > t, req.connectivity).labels
         for t in thr])

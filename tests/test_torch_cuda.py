@@ -7,8 +7,9 @@ pointer kernels (`fused_local_phase`, `steepest_neighbor`,
 `block_pathcompress`); 1e-5 (fp32) and 3e-2 (bf16) for `segment_bag` and
 2e-5 (fp32) and 2e-2 (bf16) for `flash_attention`, whose sums run in
 another order than their plain versions' (whose p stays fp32; the bf16
-tensor-core kernel carries it as two bf16 parts), with rtol 8e-3 / atol
-2e-3 (one bf16 ulp) for its Sq = Sk = 1024 case.  This file imports neither jax nor
+tensor-core kernel carries it as two bf16 parts, the fp32 one P and V as
+two TF32 parts each), with rtol 8e-3 / atol 2e-3 (one bf16 ulp) for the bf16
+Sq = Sk = 1024 case.  This file imports neither jax nor
 `repro`, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -252,14 +253,20 @@ def test_segment_bag_kernel_vs_plain(cuda, v, d, b, l, id_dtype, table_dtype,
     (1, 4, 2, 128, 64, 4, True),      # causal, Sk < Sq: rows average V
     (2, 8, 8, 100, 100, 160, True),   # Sq not a multiple of 8 rows
     (1, 2, 1, 40, 72, 256, False),    # D = 256: 74 KB of shared memory
-    (1, 8, 1, 33, 33, 128, True)])    # MQA, a ragged last key tile
+    (1, 8, 1, 33, 33, 128, True),     # MQA, a ragged last key tile
+    (1, 2, 1, 40, 72, 1, True),       # D = 1: element loads
+    (1, 4, 2, 70, 130, 64, True),     # Sk not a multiple of 64 keys
+    (2, 4, 1, 200, 136, 128, True)])  # D = 128, Sk < Sq, 4 query tiles
 def test_flash_kernel_vs_plain(cuda, b, h, hkv, sq, sk, d, causal, dtype,
                                tol):
-    """bf16 runs the tensor-core kernel at every D here (4 to 256), f32 the
-    CUDA-core kernel; each call adds one to its kernel's count only."""
+    """bf16 runs the tensor-core kernel at every D here (1 to 256); f32 the
+    kernel with PV on the tensor cores up to D = 128 and the CUDA-core one
+    above; each call adds one to its kernel's count only."""
     q, k, v = _attention_inputs(b, h, hkv, sq, sk, d, dtype, cuda,
                                 seed=sq * d + sk)
-    got = _flash_once(q, k, v, causal, str(dtype).removeprefix("torch."))
+    key = {torch.float32: "float32" if d <= 128 else "float32_cuda_cores",
+           torch.bfloat16: "bfloat16"}[dtype]
+    got = _flash_once(q, k, v, causal, key)
     _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
     if causal and sk < sq:            # the first sq - sk rows: mean of V
         mean = v.float().mean(2).repeat_interleave(h // hkv, dim=1)
@@ -300,39 +307,84 @@ def test_flash_tc_causal_gqa_1024(cuda):
         rtol=8e-3, atol=2e-3)
 
 
+def test_flash_f32_causal_gqa_1024(cuda):
+    """f32, causal GQA at Sq = Sk = 1024, D = 64: 8 query tiles of 128
+    rows, the early stop and the diagonal tiles, within 2e-5."""
+    q, k, v = _attention_inputs(2, 8, 2, 1024, 1024, 64, torch.float32,
+                                cuda, seed=1024)
+    got = _flash_once(q, k, v, True, "float32")
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=True), 2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol,key", [
+    (torch.float32, 2e-5, "float32"),
+    (torch.bfloat16, 2e-2, "bfloat16")])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_tc_large_scores(cuda, causal):
+def test_flash_tc_large_scores(cuda, causal, dtype, tol, key):
     """q and k times 8 (scores of hundreds): the online rescale of m, l and
-    the accumulator across key tiles."""
-    q, k, v = _attention_inputs(1, 4, 2, 200, 300, 64, torch.bfloat16, cuda,
-                                seed=8)
+    the accumulator across key tiles.  In f32 the reference's own sums are
+    more than 2e-5 from exact here; the kernel sums each score in its
+    order (tests/test_torch_kernels.py models why)."""
+    q, k, v = _attention_inputs(1, 4, 2, 200, 300, 64, dtype, cuda, seed=8)
     q, k = q * 8, k * 8
-    got = _flash_once(q, k, v, causal, "bfloat16")
-    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), 2e-2)
+    got = _flash_once(q, k, v, causal, key)
+    _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
+
+
+@pytest.mark.parametrize("dtype,tol,key", [
+    (torch.float32, 2e-5, "float32"),
+    (torch.float32, 2e-5, "float32_cuda_cores"),
+    (torch.bfloat16, 2e-2, "bfloat16"),
+    (torch.bfloat16, 2e-2, "bfloat16_cuda_cores")])
+def test_flash_kernel_unaligned_base(cuda, dtype, tol, key):
+    """q, k, v and the output one element past a 16-byte boundary: element
+    loads and stores in place of the 16-byte ones."""
+    d = {"float32": 64, "float32_cuda_cores": 160, "bfloat16": 64,
+         "bfloat16_cuda_cores": 320}[key]
+    q, k, v = _attention_inputs(1, 4, 2, 96, 80, d, dtype, cuda, seed=d)
+    q, k, v = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+               for t in (q, k, v))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    before = dict(flash_mod.launches)
+    out = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:]
+    fn = _build.entry("flash_attention", flash_mod.SYMBOLS[key],
+                      flash_mod._ARGTYPES)
+    with torch.cuda.device(cuda):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 1, 4, 2, 96, 80, d, ref.softmax_scale(d), 1,
+                 _build.stream(q))
+    assert err == 0 and flash_mod.route(dtype, d) == key
+    got = ops.flash_attention(q, k, v, causal=True, block_q=96, block_k=80)
+    assert flash_mod.launches[key] == before[key] + 1
+    want = ref.flash_attention_kernel_ref(q, k, v, causal=True)
+    _close(out.view(q.shape), want, tol)
+    _close(got, want, tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("sq,sk,causal", [(1, 1, False), (1, 1, True),
                                           (1, 77, True), (65, 1, True)])
-def test_flash_kernel_single_rows(cuda, sq, sk, causal, dtype, tol):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_single_rows(cuda, sq, sk, causal, d, dtype, tol):
     """Sq = 1 and Sk = 1 (one key: the output is v, or the mean of V for a
-    fully masked row)."""
-    q, k, v = _attention_inputs(2, 4, 1, sq, sk, 128, dtype, cuda,
+    fully masked row), on both tile shapes of each tensor-core kernel."""
+    q, k, v = _attention_inputs(2, 4, 1, sq, sk, d, dtype, cuda,
                                 seed=sq + 7 * sk)
     got = _flash_once(q, k, v, causal, str(dtype).removeprefix("torch."))
     _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
 
 
-@pytest.mark.parametrize("dtype,tol,key", [
-    (torch.float32, 2e-5, "float32"),
-    (torch.bfloat16, 2e-2, "bfloat16_cuda_cores")])
+@pytest.mark.parametrize("dtype,tol,key,d", [
+    (torch.float32, 2e-5, "float32_cuda_cores", 320),
+    (torch.bfloat16, 2e-2, "bfloat16_cuda_cores", 320),
+    (torch.float32, 2e-5, "float32_cuda_cores", 129)])
 @pytest.mark.parametrize("sq,sk,causal", [(40, 72, False), (96, 64, True)])
-def test_flash_kernel_head_dim_320(cuda, sq, sk, causal, dtype, tol, key):
+def test_flash_kernel_head_dim_320(cuda, sq, sk, causal, dtype, tol, key, d):
     """D = 320 (> 256) runs the CUDA-core kernel in both dtypes, its output
-    columns in two chunks (256 + 64)."""
-    q, k, v = _attention_inputs(1, 4, 2, sq, sk, 320, dtype, cuda,
-                                seed=320 + sq)
+    columns in two chunks (256 + 64); f32 takes it from D = 129 on."""
+    q, k, v = _attention_inputs(1, 4, 2, sq, sk, d, dtype, cuda,
+                                seed=d + sq)
     got = _flash_once(q, k, v, causal, key)
     _close(got, ref.flash_attention_kernel_ref(q, k, v, causal=causal), tol)
 
@@ -362,11 +414,15 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
 
 @pytest.mark.parametrize("key, d", [
     ("bfloat16", flash_mod.TC_MAX_HEAD_DIM + 1),
-    ("bfloat16_cuda_cores", flash_mod.TC_MAX_HEAD_DIM)])
+    ("bfloat16_cuda_cores", flash_mod.TC_MAX_HEAD_DIM),
+    ("float32", flash_mod.F32_TC_MAX_HEAD_DIM + 1),
+    ("float32_cuda_cores", flash_mod.F32_TC_MAX_HEAD_DIM)])
 def test_flash_bf16_entry_points_meet_at_tc_max_head_dim(cuda, key, d):
-    """The two bf16 C entry points split the head dims where `route` does:
-    each returns cudaErrorInvalidValue (1) on the other's side."""
-    q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16, device=cuda)
+    """The two C entry points of each dtype split the head dims where
+    `route` does: each returns cudaErrorInvalidValue (1) on the other's
+    side."""
+    dtype = torch.float32 if key.startswith("float32") else torch.bfloat16
+    q = torch.zeros(1, 2, 8, d, dtype=dtype, device=cuda)
     out = torch.empty_like(q)
     fn = _build.entry("flash_attention", flash_mod.SYMBOLS[key],
                       flash_mod._ARGTYPES)

@@ -424,12 +424,165 @@ def test_flash_route():
         == ["bfloat16"] * 4
     assert [flash_mod.route(torch.bfloat16, d) for d in (257, 320, 1247)] \
         == ["bfloat16_cuda_cores"] * 3
-    assert [flash_mod.route(torch.float32, d) for d in (4, 256, 320)] \
-        == ["float32"] * 3
+    assert [flash_mod.route(torch.float32, d) for d in (1, 4, 64, 112, 128)] \
+        == ["float32"] * 5
+    assert [flash_mod.route(torch.float32, d) for d in (129, 256, 320, 1247)] \
+        == ["float32_cuda_cores"] * 4
+    assert flash_mod.F32_TC_MAX_HEAD_DIM == 128
     assert set(flash_mod.launches) == set(flash_mod.SYMBOLS) == {
-        "float32", "bfloat16", "bfloat16_cuda_cores"}
+        "float32", "float32_cuda_cores", "bfloat16", "bfloat16_cuda_cores"}
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_mod.route(torch.float16, 64)
+
+
+# --- the fp32 kernel's arithmetic (`flash_f32tc`), modelled on the CPU ---------
+#
+# The CUDA kernel cannot run here; this model repeats its arithmetic in torch
+# so that the CPU shows it meets the fp32 tolerance before any card run: q *
+# scale in fp32; each score one fma chain over d = 0, 1, ... (the fma in
+# float64, rounded to fp32 at each step); key tiles of 64, the online softmax
+# on the scores as they are, p = exp2((s - m) log2(e)); O += P V as three
+# products of TF32 parts, P_small V_big + P_big V_small + P_big V_big, each
+# part rounded as cvt.rna.tf32.f32 rounds, summed in fp32.  The variants show
+# why the kernel is built so: one TF32 product misses 2e-5 at every size, and
+# QK^T summed 8 d at a time (a tensor-core mma's order, here with 3xTF32
+# products) misses it at large scores, where the reference's own fp32 sums
+# are already that far from exact.
+
+# (b, h, hkv, sq, sk, d, causal): the card tests' fp32 cases with D <= 128
+F32TC_CASES = [
+    (1, 4, 2, 128, 256, 64, False),   # GQA
+    (1, 4, 2, 64, 192, 112, True),    # causal, Sk > Sq, D = 112
+    (1, 4, 2, 128, 64, 4, True),      # causal, Sk < Sq: rows average V
+    (1, 8, 1, 33, 33, 128, True),     # MQA, D = 128, ragged key tile
+    (1, 2, 1, 40, 72, 1, True),       # D = 1
+    (1, 4, 2, 200, 300, 64, False),   # the large-scores shape
+]
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, on the bit pattern: half a TF32 ulp added to the
+    magnitude, the 13 bits below it cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _qk_fma(qf, kt):
+    """Each score one fma chain over d, as the kernel's CUDA cores sum it."""
+    s = torch.zeros(qf.shape[:-1] + kt.shape[-1:], dtype=torch.float32)
+    for d in range(qf.shape[-1]):
+        s = (qf[..., d:d + 1].double() * kt[..., d:d + 1, :].double()
+             + s.double()).float()
+    return s
+
+
+def _qk_mma_3xtf32(qf, kt):
+    """QK^T as m16n8k8 mma would sum it: 8 d a product, 3xTF32."""
+    (qb, qs), (kb, ks) = _tf32_split(qf), _tf32_split(kt)
+    s = torch.zeros(qf.shape[:-1] + kt.shape[-1:], dtype=torch.float32)
+    for d0 in range(0, qf.shape[-1], 8):
+        c = slice(d0, d0 + 8)
+        s = s + qs[..., c] @ kb[..., c, :]
+        s = s + qb[..., c] @ ks[..., c, :]
+        s = s + qb[..., c] @ kb[..., c, :]
+    return s
+
+
+def _pv_3xtf32(p, v):
+    (pb, ps), (vb, vs) = _tf32_split(p), _tf32_split(v)
+    return ps @ vb + pb @ vs + pb @ vb
+
+
+def _pv_1xtf32(p, v):
+    return _tf32(p) @ _tf32(v)
+
+
+def _f32tc_model(q, k, v, causal, qk=_qk_fma, pv=_pv_3xtf32, block_k=64):
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf = (q * ref.softmax_scale(d)).reshape(b, hkv, h // hkv, sq, d)
+    m = torch.full((b, hkv, h // hkv, sq, 1), ref.MASKED)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    for j0 in range(0, sk, block_k):
+        kc = k[:, :, None, j0:j0 + block_k]
+        s = qk(qf, kc.transpose(-1, -2))
+        if causal:
+            kpos = torch.arange(j0, j0 + kc.shape[3])
+            s = torch.where(qpos >= kpos, s, ref.MASKED)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2((s - m_new) * log2e)
+        corr = torch.exp2((m - m_new) * log2e)
+        lsum = lsum * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + pv(p, v[:, :, None, j0:j0 + block_k])
+        m = m_new
+    return (acc / lsum.clamp(min=1e-30)).reshape(b, h, sq, d)
+
+
+def _attention_f64(q, k, v, causal):
+    """The attention in float64 (no row here is fully masked)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qd = (q.double() * ref.softmax_scale(d)).reshape(b, hkv, h // hkv, sq, d)
+    s = qd @ k.double()[:, :, None].transpose(-1, -2)
+    if causal:
+        visible = torch.arange(sq)[:, None] + (sk - sq) >= torch.arange(sk)
+        s = torch.where(visible, s, ref.MASKED)
+    return (s.softmax(-1) @ v.double()[:, :, None]).reshape(b, h, sq, d)
+
+
+def _limit_share(got, want, tol=ATTN_TOL["f32"]):
+    """The largest |got - want| / (tol + tol |want|): above 1 fails."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def _f32_inputs(case, scale):
+    q, k, v = map(torch.from_numpy, _qkv(*case[:6], seed=3))
+    return q * scale, k * scale, v
+
+
+@pytest.mark.parametrize("scale", [1, 8])      # 8: scores of hundreds
+@pytest.mark.parametrize("case", F32TC_CASES)
+def test_flash_f32_kernel_arithmetic_meets_2e5(case, scale):
+    q, k, v = _f32_inputs(case, scale)
+    want = ref.flash_attention_kernel_ref(q, k, v, causal=case[6])
+    torch.testing.assert_close(_f32tc_model(q, k, v, case[6]), want,
+                               rtol=ATTN_TOL["f32"], atol=ATTN_TOL["f32"])
+
+
+@pytest.mark.parametrize("case", F32TC_CASES[:2] + F32TC_CASES[-1:])
+def test_flash_f32_single_tf32_product_misses_2e5(case):
+    """One TF32 product (about 2^-11 of each p v) in place of three."""
+    q, k, v = _f32_inputs(case, 1)
+    want = ref.flash_attention_kernel_ref(q, k, v, causal=case[6])
+    assert _limit_share(_f32tc_model(q, k, v, case[6], pv=_pv_1xtf32),
+                        want) > 2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_qk_in_mma_order_misses_2e5_at_large_scores(causal):
+    """QK^T summed 8 d at a time in 3xTF32 holds 2e-5 at unit scores but
+    not at scores of hundreds; the fp32 reference is itself more than the
+    limit from the float64 result there, so only its own order (one fma
+    chain over d) stays within it."""
+    case = F32TC_CASES[-1][:6] + (causal,)
+    q, k, v = _f32_inputs(case, 1)
+    want = ref.flash_attention_kernel_ref(q, k, v, causal=causal)
+    assert _limit_share(_f32tc_model(q, k, v, causal, qk=_qk_mma_3xtf32),
+                        want) < 0.5
+    q, k, v = _f32_inputs(case, 8)
+    want = ref.flash_attention_kernel_ref(q, k, v, causal=causal)
+    assert _limit_share(_f32tc_model(q, k, v, causal, qk=_qk_mma_3xtf32),
+                        want) > 1
+    assert _limit_share(want.double(), _attention_f64(q, k, v, causal)) > 1
 
 
 # --- interop: bf16 crosses bit for bit ----------------------------------------

@@ -126,6 +126,20 @@ def test_threshold_sweep_query(field, conn):
     _equal(got.labels, want.labels)
 
 
+@pytest.mark.parametrize("conn", [6, 26])
+def test_threshold_sweep_without_thresholds(conn):
+    """No threshold: int32 labels of shape (0, *field.shape), as JAX's vmap
+    over zero rows gives."""
+    field = np.random.default_rng(5).random((5, 4, 3)).astype(np.float32)
+    req = dict(field=field, thresholds=np.array([], np.float32),
+               connectivity=conn)
+    got = topology.submit(topology.TopologyRequest("threshold_sweep", **req),
+                          device="cpu")
+    want = jtop.submit(jtop.TopologyRequest("threshold_sweep", **req))
+    assert tuple(got.labels.shape) == (0, 5, 4, 3)
+    _equal(got.labels, want.labels)
+
+
 def test_validation_and_unported_routes(order):
     with pytest.raises(ValueError, match="needs order="):
         topology.submit(topology.TopologyRequest("ms"), device="cpu")
