@@ -38,7 +38,10 @@ seconds:
      just after, its results checked against the compared ones, and the
      kernel, plain, bound and library times (SDPA's flash backend for bf16,
      its memory-efficient one for f32), attention's TFLOP/s and the two
-     tensor-core kernels' ptxas registers and spills.
+     tensor-core kernels' ptxas registers and spills.  The two pointer
+     kernels also carry `device_ms`, their own device time in a profiler
+     window (median of 21 launches); `steepest_neighbor` at connectivity 26
+     on the same field is checked and timed on a line of its own.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -187,6 +190,32 @@ def profile(fn, label, top=6):
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {ms:9.3f} ms  {count:5d}x  {key[:90]}")
     return rows
+
+
+def device_ms(fn, reps=21):
+    """Median over `reps` calls of fn, each launching one kernel, of that
+    kernel's own device time in one torch.profiler window; None when the
+    profiler saw another number of device activities."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)   # a first device activity can go unseen
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1e3
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin" not in e.name]
+    return statistics.median(times) if len(times) == reps else None
+
+
+def ms_text(ms):
+    """A device time for a print line: milliseconds to 3 places, or "not
+    measured" where `device_ms` returned None."""
+    return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
 def standalone_kernels(order, conn, smi):
@@ -386,8 +415,12 @@ def standalone_kernels(order, conn, smi):
     kernels = []
 
     def entry(name, src, line, launched, e, kernel, plain, nbytes, ops_,
-              peak, library, **extra):
+              peak, library, one_kernel=False, **extra):
+        """one_kernel: the call launches one kernel and nothing else, whose
+        profiler device time goes beside the event time as `device_ms`."""
         k_ms, p_ms = event_ms(kernel, 5), event_ms(plain, 3)
+        if one_kernel:
+            extra["device_ms"] = device_ms(kernel)
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = ops_ / peak * 1e3
         lib_ms = None if library is None else event_ms(library, 5)
@@ -400,24 +433,35 @@ def standalone_kernels(order, conn, smi):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": lib_ms, **extra})
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-        print(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-              f"{max(by_bytes, by_ops):.3f} ms "
+        on_device = ("" if "device_ms" not in extra else
+                     f" (device {ms_text(extra['device_ms'])})")
+        print(f"  {name}: kernel {k_ms:.3f} ms{on_device}, plain "
+              f"{p_ms:.3f} ms, bound {max(by_bytes, by_ops):.3f} ms "
               f"({kernels[-1]['bound_by']}), library {lib} ({smi})")
 
     entry("steepest_neighbor", "steepest_neighbor", 90,
           launches["steepest_neighbor"][conn], err["steepest_neighbor"],
           lambda: ops.steepest_neighbor(order, conn),
           lambda: ref.steepest_neighbor_ref(order, conn),
-          n * (4 + 4), n * conn, INT_OPS_PER_S, None)
+          n * (4 + 4), n * conn, INT_OPS_PER_S, None, one_kernel=True)
     print("    library: none - no single PyTorch call computes a strict-> "
           "stencil argmax")
+    # connectivity 26 on the same field, on a line of its own
+    steep26 = lambda: ops.steepest_neighbor(order, 26)  # noqa: E731
+    check(torch.equal(steep26(), ref.steepest_neighbor_ref(order, 26)),
+          "steepest_neighbor grid_512 conn 26: kernel == plain")
+    bound26 = max(n * 8 / HBM_BYTES_PER_S, n * 26 / INT_OPS_PER_S) * 1e3
+    print(f"  steepest_neighbor conn 26 (grid_512, kernel == plain): kernel "
+          f"{event_ms(steep26, 5):.3f} ms (device "
+          f"{ms_text(device_ms(steep26))}), "
+          f"bound {bound26:.3f} ms ({smi})")
     global_ms = event_ms(lambda: ops.block_pathcompress(ptr, 4, 1 << 22), 5)
     entry("block_pathcompress", "block_pathcompress", 57,
           launches["block_pathcompress"]["shared"],
           err["block_pathcompress"],
           lambda: ops.block_pathcompress(ptr, 4, 4096),
           lambda: ref.block_pathcompress_kernel_ref(ptr, 4, 4096),
-          n * (4 + 4), n * 4, INT_OPS_PER_S, None,
+          n * (4 + 4), n * 4, INT_OPS_PER_S, None, one_kernel=True,
           global_config_block_4M_ms=global_ms)
     print(f"    library: none - no single PyTorch call runs tile-confined "
           f"doubling; the global configuration (block 2^22) takes "

@@ -5,10 +5,12 @@
 `rounds` synchronous rounds of ``d <- d[d]``, each confined to a tile of
 ``min(block, next_pow2(n))`` pointers (`ref.snapped_block`); negative and
 out-of-tile pointers are fixed points, and the tail past n reads as the -1
-sentinel.  The kernel has two launch configurations: the tile in shared
-memory (one CTA per tile, every round in shared memory) when two tiles fit
-in a block's 227 KB, else one launch per round over device memory.  The
-plain version is `ref.block_pathcompress_kernel_ref`.
+sentinel.  The kernel has two launch configurations: the tiles in shared
+memory when two tiles fit in a block's 227 KB (persistent CTAs stream the
+tiles through a ring of stages filled by bulk copies, every round in
+shared memory, one launch a call, any base alignment), else one launch per
+round over device memory.  The plain version is
+`ref.block_pathcompress_kernel_ref`.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + 
 
 def configuration(block: int, dtype: torch.dtype) -> str:
     """"shared" when two tiles of `block` ids fit in a block's shared
-    memory (ping-pong rounds), else "global"."""
+    memory (the streaming kernel), else "global"."""
     return "shared" if 2 * block * dtype.itemsize <= SHARED_BYTES else "global"
 
 

@@ -1,5 +1,7 @@
-// Pointer-init stencil of DPC on an (X, Y, Z) grid, shared by
-// fused_local_phase.cu (its init) and steepest_neighbor.cu.
+// Pointer-init stencil of DPC on an (X, Y, Z) grid: the offset tables and
+// their compile-time fold, shared by fused_local_phase.cu (whose init runs
+// init_kernel below) and steepest_neighbor.cu (whose streaming kernel folds
+// over values it holds in a tile, through `visit_at`).
 //
 // For every voxel, one of two candidates' rules over the voxel itself and
 // its 6/14/18/26 neighbours:
@@ -124,6 +126,16 @@ template <int C, typename Id, typename Offer, int... K>
 __device__ __forceinline__ void visit_all(const Voxel<Id>& v, Offer& offer,
                                           std::integer_sequence<int, K...>) {
   (visit<C, K>(v, offer), ...);  // in table order
+}
+
+// visit for a kernel that holds the candidates' values itself
+// (steepest_neighbor.cu's tiles): offer(o, j) gets neighbour K's offset o,
+// a constant once inlined, beside its flat id j, if visit's bounds tests
+// let it through.
+template <int C, int K, typename Id, typename Offer>
+__device__ __forceinline__ void visit_at(const Voxel<Id>& v, Offer& offer) {
+  auto at = [&](Id j) { offer(neighbor<C>(K), j); };
+  visit<C, K>(v, at);
 }
 
 constexpr int kBlockZ = 32;

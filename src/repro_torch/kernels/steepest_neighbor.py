@@ -4,9 +4,11 @@ replaces the Pallas TPU kernel
 
 For each voxel of an (X, Y, Z) int32 order field: the global flat id of the
 largest-order vertex among the voxel and its 6/14/18/26 neighbours, self
-first, strict ``>`` (the first maximum wins).  The plain version is
-`ref.steepest_neighbor_ref`; `ops.steepest_neighbor` dispatches between the
-two by the tensor's device.
+first, strict ``>`` (the first maximum wins).  The kernel is a 2.5-D
+streaming stencil: CTAs march along x through tiles of 16 y-rows by 128 z
+held in a ring of planes in shared memory; it takes any extents and any
+base alignment.  The plain version is `ref.steepest_neighbor_ref`;
+`ops.steepest_neighbor` dispatches between the two by the tensor's device.
 """
 from __future__ import annotations
 

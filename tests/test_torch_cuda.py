@@ -157,21 +157,34 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("ties", [False, True], ids=["unique", "ties"])
 @pytest.mark.parametrize("conn", [6, 14, 18, 26])
-def test_steepest_kernel_vs_plain(cuda, conn, ties):
-    """Ragged extents (Z past one 32-wide block, Y past one 4-row block);
-    with ties the offset order decides, so it must be the plain one."""
-    rng = np.random.default_rng(conn + 100 * ties)
-    for shape in ((13, 11, 37), (3, 1, 2)):
-        n = int(np.prod(shape))
-        order = (rng.integers(0, 4, size=shape) if ties
-                 else rng.permutation(n).reshape(shape)).astype(np.int32)
-        t = torch.from_numpy(order).to(cuda)
-        before = steepest_mod.launches[conn]
-        got = ops.steepest_neighbor(t, conn)
-        want = ref.steepest_neighbor_ref(t, conn)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got, want)
-        assert steepest_mod.launches[conn] == before + 1
+@pytest.mark.parametrize("shape,lead", [
+    ((13, 11, 37), 0), ((3, 1, 2), 0),
+    ((6, 19, 300), 0),     # y and z past whole tiles (16 rows, 128 z)
+    ((1, 9, 40), 0), ((6, 1, 200), 0), ((5, 7, 1), 0), ((1, 1, 1), 0),
+    ((9, 7, 3), 0),        # Z = 3: no 16-byte store lines up
+    ((7, 5, 33), 1),       # base Y * Z ids into a larger tensor, Y * Z odd
+    ((40, 30, 260), 0),
+    # 128 tiles: the x-run rule gives runs of ~8 planes on an H100 (132
+    # SMs, 4 CTAs each), the last one shorter
+    ((130, 512, 512), 0)])
+def test_steepest_kernel_vs_plain(cuda, conn, ties, shape, lead):
+    """Ragged extents against the streaming stencil's tiles and x-runs,
+    each extent 1, a base off the 16-byte grid, runs of one plane (small
+    grids) and of several; with ties the offset order decides, so it must
+    be the plain one.  One launch a call."""
+    rng = np.random.default_rng(conn + 100 * ties + sum(shape))
+    full = (shape[0] + lead,) + tuple(shape[1:])
+    n = int(np.prod(full))
+    order = (rng.integers(0, 4, size=full) if ties
+             else rng.permutation(n).reshape(full)).astype(np.int32)
+    t = torch.from_numpy(order).to(cuda)[lead:]
+    assert t.is_contiguous() and (t.data_ptr() % 16 != 0) == (lead > 0)
+    before = steepest_mod.launches[conn]
+    got = ops.steepest_neighbor(t, conn)
+    want = ref.steepest_neighbor_ref(t, conn)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert steepest_mod.launches[conn] == before + 1
 
 
 @pytest.mark.parametrize("conn", [6, 26])
@@ -199,27 +212,56 @@ def _pointers(n, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("n,block,rounds,config", [
-    (100, 32, 3, "shared"), (1005, 100, 2, "shared"), (50, 4096, 4, "shared"),
-    (100_000, 4096, 6, "shared"), (100_000, 8192, 1, "shared"),
-    (100_000, 40_000, 5, "global"),   # int32 tile of 160 KB: two do not fit
-    (70_000, 65_536, 2, "global")])
+@pytest.mark.parametrize("n,block,rounds,config,offset,fixpoint", [
+    (100, 32, 3, "shared", 0, False), (1005, 100, 2, "shared", 0, False),
+    (50, 4096, 4, "shared", 0, False), (100_000, 4096, 6, "shared", 0, False),
+    (100_000, 8192, 1, "shared", 0, False),
+    (100_000, 40_000, 5, "global", 0, False),  # int32 tile of 160 KB
+    (70_000, 65_536, 2, "global", 0, False),
+    # the streaming kernel's edges: a base off the 16-byte grid (d[1:]),
+    # tile starts off it (block 1001), fewer tiles than persistent CTAs and
+    # many more, the largest int64 tile in shared memory (one stage),
+    # rounds 1 and 7, an input already at its fixpoint
+    (100_000, 4096, 4, "shared", 1, False),
+    (100_001, 1001, 3, "shared", 0, False),
+    (100_001, 1001, 7, "shared", 3, False),
+    (9000, 4096, 4, "shared", 1, False),
+    (2 ** 20 + 3, 4096, 4, "shared", 0, False),
+    (50_000, 14_528, 3, "shared", 0, False),
+    (50_000, 14_528, 2, "shared", 1, False),
+    (100_000, 4096, 1, "shared", 0, False),
+    (100_000, 4096, 7, "shared", 0, False),
+    (100_000, 4096, 4, "shared", 0, True),
+    (100_003, 1001, 4, "shared", 1, True)])
 def test_block_pathcompress_kernel_vs_plain(cuda, n, block, rounds, config,
-                                            dtype):
-    """Both launch configurations, exact; pointers run past n (into the -1
-    pad) and past their tile."""
+                                            offset, fixpoint, dtype):
+    """Both launch configurations, exact, twice (the streaming kernel's
+    ring of stages); pointers run past n (into the -1 pad) and past their
+    tile.  `offset` ids in front of d put its base off the 16-byte grid."""
     d = torch.from_numpy(_pointers(n, n + rounds)).to(cuda, dtype)
+    if fixpoint:
+        d = ref.block_pathcompress_kernel_ref(d, 64, block)
+        assert torch.equal(ref.block_pathcompress_kernel_ref(d, 1, block), d)
+    buf = torch.zeros(n + offset, dtype=dtype, device=cuda)
+    buf[offset:] = d
+    d = buf[offset:]
+    assert (d.data_ptr() % 16 != 0) == (offset > 0)
     assert bpc_mod.configuration(ref.snapped_block(n, block),
                                  dtype) == config
-    before = bpc_mod.launches[config]
-    got = ops.block_pathcompress(d, rounds, block)
     want = ref.block_pathcompress_kernel_ref(d, rounds, block)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and torch.equal(got, want)
+    if fixpoint:
+        assert torch.equal(want, d)
+    before = bpc_mod.launches[config]
+    for _ in range(2):
+        got = ops.block_pathcompress(d, rounds, block)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
     # one launch a call in shared memory, one a round in device memory
-    assert bpc_mod.launches[config] == before + (
+    assert bpc_mod.launches[config] == before + 2 * (
         1 if config == "shared" else rounds)
     assert torch.equal(ops.block_pathcompress(d, 0, block), d)
+    assert bpc_mod.launches[config] == before + 2 * (
+        1 if config == "shared" else rounds)
 
 
 @pytest.mark.parametrize("table_dtype,tol", [(torch.float32, 1e-5),

@@ -188,7 +188,7 @@ def test_block_pathcompress_plain_vs_pallas_interpret(n, block, rounds):
 
 
 @pytest.mark.parametrize("n,block,rounds", [(100, 32, 3), (1005, 100, 2),
-                                            (64, 64, 0)])
+                                            (64, 64, 0), (2003, 1001, 7)])
 def test_block_pathcompress_plain_is_the_per_tile_ref(n, block, rounds):
     """The plain version is JAX's ref run per tile of the snapped block on
     the -1-padded array; int64 ids give the same pointers."""
