@@ -39,9 +39,17 @@ seconds:
      kernel, plain, bound and library times (SDPA's flash backend for bf16,
      its memory-efficient one for f32), attention's TFLOP/s and the two
      tensor-core kernels' ptxas registers and spills.  The two pointer
-     kernels also carry `device_ms`, their own device time in a profiler
-     window (median of 21 launches); `steepest_neighbor` at connectivity 26
-     on the same field is checked and timed on a line of its own.
+     kernels and both bags also carry `device_ms`, their own device time
+     in a profiler window (median of 21 launches); `steepest_neighbor` at
+     connectivity 26 on the same field is checked and timed on a line of
+     its own.  The bags print the worst element's share of their limit and
+     a per-reference figure beside the bound (context, not a bound), and
+     BST's own calls (`models/bst.py`: one a multihot field, field f's ids
+     in [f * 500,000, (f + 1) * 500,000) plus -1 pads) at serve_bulk and
+     serve_p99, both dtypes, each held to the plain version, with event
+     time, device time (the two fields in turns) and bound; then the
+     ptxas registers and spills of every bag instance (the four 16-byte
+     instances must not spill).
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -90,8 +98,9 @@ EARLIER_RUN_MS = {"manifold": 11.519, "cc": 10.124}
 # this script in an earlier run (PERF.md, run T); printed for reference only
 EARLIER_FLASH_F32_MS = 726.057
 # BST (configs/bst.py): two multihot fields of 500,000 rows, embed_dim 32,
-# 16 ids a bag; serve_bulk's batch
-BAG_V, BAG_D, BAG_B, BAG_L = 2 * 500_000, 32, 262_144, 16
+# 16 ids a bag; serve_bulk's batch, and serve_p99's for BST's own calls
+BST_FIELDS, BST_FIELD_V, BST_P99 = 2, 500_000, 512
+BAG_V, BAG_D, BAG_B, BAG_L = BST_FIELDS * BST_FIELD_V, 32, 262_144, 16
 # llama3.2-1b (configs/llama3_2_1b.py) at prefill_32k, batch cut 32 -> 1
 ATTN_B, ATTN_H, ATTN_HKV, ATTN_D, ATTN_S = 1, 32, 8, 64, 32_768
 TOL = {"bfloat16": {"bag": 3e-2, "attn": 2e-2},
@@ -131,28 +140,39 @@ def event_ms(fn, reps):
     return statistics.median(times)
 
 
-def ptxas_report(log, kernel):
-    """{"kernel<template ints>": {"registers", "spill_stores",
-    "spill_loads"}} of every entry function whose mangled name contains
-    `kernel`, from a `-Xptxas -v` log."""
-    out, name = {}, None
+def ptxas_report(log, kernel, name=None):
+    """{name: {"registers", "spill_stores", "spill_loads"}} of every entry
+    function whose mangled name contains `kernel`, from a `-Xptxas -v` log;
+    `name` maps a mangled name to its key (by default
+    "kernel<template ints>")."""
+    if name is None:
+        def name(mangled):
+            return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', mangled))}>"
+    out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = None
-            if kernel in m.group(1):
-                args = re.findall(r"Li(\d+)E", m.group(1))
-                name = f"{kernel}<{', '.join(args)}>"
-        elif name:
+            key = name(m.group(1)) if kernel in m.group(1) else None
+        elif key:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
-                out.setdefault(name, {}).update(
+                out.setdefault(key, {}).update(
                     spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                out.setdefault(name, {})["registers"] = int(m.group(1))
+                out.setdefault(key, {})["registers"] = int(m.group(1))
     return out
+
+
+def bag_name(mangled):
+    """"bag_kernel<table, ids, VEC, rows>" of a mangled segment_bag
+    instance."""
+    k = re.search(r"bag_kernelI(f|13__nv_bfloat16)([il])Li(\d+)ELi(\d+)E",
+                  mangled)
+    return (f"bag_kernel<{'f32' if k.group(1) == 'f' else 'bf16'}, "
+            f"{'i32' if k.group(2) == 'i' else 'i64'}, VEC {k.group(3)}, "
+            f"rows {k.group(4)}>")
 
 
 def profile(fn, label, top=6):
@@ -192,9 +212,10 @@ def profile(fn, label, top=6):
     return rows
 
 
-def device_ms(fn, reps=21):
-    """Median over `reps` calls of fn, each launching one kernel, of that
-    kernel's own device time in one torch.profiler window; None when the
+def device_ms(calls, reps=21):
+    """{label: ms} of calls (label -> fn, each call launching one kernel):
+    `reps` turns, each calling every fn once, in one torch.profiler window;
+    the median of each kernel's own device time.  Every ms is None when the
     profiler saw another number of device activities."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -203,19 +224,38 @@ def device_ms(fn, reps=21):
                                    ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)   # a first device activity can go unseen
         for _ in range(reps):
-            fn()
+            for fn in calls.values():
+                fn()
         torch.cuda.synchronize()
     times = [(e.time_range.end - e.time_range.start) / 1e3
-             for e in prof.events()
+             for e in sorted(prof.events(), key=lambda e: e.time_range.start)
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "spin" not in e.name]
-    return statistics.median(times) if len(times) == reps else None
+    if len(times) != reps * len(calls):
+        return dict.fromkeys(calls)
+    return {label: statistics.median(times[k::len(calls)])
+            for k, label in enumerate(calls)}
 
 
-def ms_text(ms):
-    """A device time for a print line: milliseconds to 3 places, or "not
-    measured" where `device_ms` returned None."""
-    return "not measured" if ms is None else f"{ms:.3f} ms"
+def bag_bytes(table, ids):
+    """(bound bytes, per-reference bytes, distinct rows, valid references)
+    of one bag call.  Both byte counts hold the ids and the (B, D) output
+    once; the bound adds every distinct row the ids name once, the
+    per-reference figure (context, not a bound) every valid reference's
+    row."""
+    import torch
+    valid = (ids >= 0) & (ids < table.shape[0])
+    rows = torch.unique(ids[valid]).numel()
+    refs = int(valid.sum())
+    row = table.shape[1] * table.element_size()
+    stream = ids.numel() * ids.element_size() + ids.shape[0] * row
+    return stream + rows * row, stream + refs * row, rows, refs
+
+
+def ms_text(ms, places=3):
+    """A device time for a print line: milliseconds to `places` places, or
+    "not measured" where `device_ms` returned None."""
+    return "not measured" if ms is None else f"{ms:.{places}f} ms"
 
 
 def standalone_kernels(order, conn, smi):
@@ -314,11 +354,16 @@ def standalone_kernels(order, conn, smi):
         close(bag_mod.segment_bag(table[dt][:1000, :], rag_ids),
               ref.segment_bag_ref(table[dt][:1000, :], rag_ids),
               TOL[dt]["bag"], f"segment_bag V 1000, (97, 61) ids, {dt}")
+        got, want = (bag_mod.segment_bag(table[dt], ids),
+                     ref.segment_bag_ref(table[dt], ids))
+        share, at = limit_share(got, want, TOL[dt]["bag"])
+        print(f"  segment_bag serve_bulk {dt}: worst element at {share} of "
+              f"its limit, (bag, column) {at}")
         err[f"segment_bag/{dt}"] = close(
-            bag_mod.segment_bag(table[dt], ids),
-            ref.segment_bag_ref(table[dt], ids), TOL[dt]["bag"],
+            got, want, TOL[dt]["bag"],
             f"segment_bag V {BAG_V} D {BAG_D} ({BAG_B}, {BAG_L}) ids, {dt}")
         n_cases += 1
+        del got, want
 
     def qkv(b, h, hkv, sq, sk, d, dt):
         shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
@@ -420,7 +465,7 @@ def standalone_kernels(order, conn, smi):
         profiler device time goes beside the event time as `device_ms`."""
         k_ms, p_ms = event_ms(kernel, 5), event_ms(plain, 3)
         if one_kernel:
-            extra["device_ms"] = device_ms(kernel)
+            extra["device_ms"] = device_ms({name: kernel})[name]
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = ops_ / peak * 1e3
         lib_ms = None if library is None else event_ms(library, 5)
@@ -453,7 +498,7 @@ def standalone_kernels(order, conn, smi):
     bound26 = max(n * 8 / HBM_BYTES_PER_S, n * 26 / INT_OPS_PER_S) * 1e3
     print(f"  steepest_neighbor conn 26 (grid_512, kernel == plain): kernel "
           f"{event_ms(steep26, 5):.3f} ms (device "
-          f"{ms_text(device_ms(steep26))}), "
+          f"{ms_text(device_ms({26: steep26})[26])}), "
           f"bound {bound26:.3f} ms ({smi})")
     global_ms = event_ms(lambda: ops.block_pathcompress(ptr, 4, 1 << 22), 5)
     entry("block_pathcompress", "block_pathcompress", 57,
@@ -466,23 +511,58 @@ def standalone_kernels(order, conn, smi):
     print(f"    library: none - no single PyTorch call runs tile-confined "
           f"doubling; the global configuration (block 2^22) takes "
           f"{global_ms:.3f} ms")
-    valid = (ids >= 0) & (ids < BAG_V)
-    rows = torch.unique(ids[valid]).numel()
     # the library call: in-range ids only (F.embedding_bag refuses ids >= V)
     lib_ids = torch.where(ids < BAG_V, ids, -1).long()
     lib_w = {dt: (lib_ids >= 0).to(table[dt].dtype) for dt in table}
     for dt in ("float32", "bfloat16"):
-        size = table[dt].element_size()
+        nbytes, per_ref, rows, refs = bag_bytes(table[dt], ids)
         entry(f"segment_bag/{dt}", "segment_bag", 62,
               launches["segment_bag"][dt], err[f"segment_bag/{dt}"],
               lambda: ops.embedding_bag(table[dt], ids),
               lambda: ref.segment_bag_ref(table[dt], ids),
-              ids.numel() * 4 + rows * BAG_D * size + BAG_B * BAG_D * size,
-              int(valid.sum()) * BAG_D, INT_OPS_PER_S,
+              nbytes, refs * BAG_D, INT_OPS_PER_S,
               lambda: F.embedding_bag(lib_ids.clamp(min=0), table[dt],
                                       per_sample_weights=lib_w[dt],
                                       mode="sum"),
-              distinct_rows=rows)
+              one_kernel=True, distinct_rows=rows)
+        print(f"    per-reference figure (context, not the bound: every "
+              f"valid reference's row + ids + output over 3.35 TB/s) "
+              f"{per_ref / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    # BST's own calls (models/bst.py): one a multihot field, field f's ids
+    # in [f * 500,000, (f + 1) * 500,000) with -1 pads drawn as
+    # data/recsys.py draws them (uniform over [-1, 500,000)), the two fields
+    # in turns as a forward pass calls them
+    for shape, b in (("serve_bulk", BAG_B), ("serve_p99", BST_P99)):
+        fids = []
+        for f in range(BST_FIELDS):
+            x = torch.randint(-1, BST_FIELD_V, (b, BAG_L), generator=gen,
+                              device=dev, dtype=torch.int32)
+            fids.append(torch.where(x >= 0, x + f * BST_FIELD_V, -1))
+        for dt in ("float32", "bfloat16"):
+            calls = {f: (lambda i=i: ops.embedding_bag(table[dt], i))
+                     for f, i in enumerate(fids)}
+            errs = {f: close(calls[f](), ref.segment_bag_ref(table[dt], i),
+                             TOL[dt]["bag"], f"segment_bag BST field {f} "
+                             f"{shape} {dt}") for f, i in enumerate(fids)}
+            for f, on_device in device_ms(calls).items():
+                nbytes, per_ref, rows, _ = bag_bytes(table[dt], fids[f])
+                print(f"  segment_bag BST field {f} {shape} ({b}, {BAG_L}) "
+                      f"{dt} (kernel == plain, max abs err {errs[f]}): "
+                      f"kernel {event_ms(calls[f], 5):.4f} ms (device "
+                      f"{ms_text(on_device, 4)}, fields in turns), bound "
+                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes; "
+                      f"{rows} distinct rows), per-reference figure "
+                      f"{per_ref / HBM_BYTES_PER_S * 1e3:.4f} ms (context, "
+                      f"not a bound) ({smi})")
+    reports = ptxas_report(_build.build_log("segment_bag"), "bag_kernel",
+                           bag_name)
+    for name, rep in reports.items():
+        print(f"  ptxas {name}: {rep}")
+    shipped = {k: r for k, r in reports.items() if "VEC 16" in k}
+    check(len(shipped) == 4 and all(
+        r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+        for r in shipped.values()), f"the four 16-byte bag instances (f32 /"
+          f" bf16 x i32 / i64, D = 32's) build without spills: {shipped}")
     from torch.nn.attention import SDPBackend, sdpa_kernel
     pairs = ATTN_S * (ATTN_S + 1) // 2           # visible (q, k) pairs
     flops = 4 * ATTN_B * ATTN_H * ATTN_D * pairs

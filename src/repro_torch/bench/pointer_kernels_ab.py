@@ -70,21 +70,29 @@ def device_and_event_ms(calls, reps):
     order = []
     for r in range(reps):
         order += list(calls) if r % 2 == 0 else list(calls)[::-1]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)   # a first device activity can go unseen
-        for label in order:
-            calls[label]()
+    # a profiler window can lose most of its device activities (seen once
+    # in 21 windows): up to three windows are taken
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = sorted(
-        (e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and "spin" not in e.name),
-        key=lambda e: e.time_range.start)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)   # a first device activity can go unseen
+            for label in order:
+                calls[label]()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin" not in e.name),
+            key=lambda e: e.time_range.start)
+        if len(kernels) == len(order):
+            break
+        print(f"profiler saw {len(kernels)} device activities for "
+              f"{len(order)} calls of one kernel each; window taken again",
+              flush=True)
     if len(kernels) != len(order):
         sys.exit(f"profiler saw {len(kernels)} device activities for "
-                 f"{len(order)} calls of one kernel each")
+                 f"{len(order)} calls of one kernel each, three times")
     device = {label: [] for label in calls}
     for label, e in zip(order, kernels):
         device[label].append((e.time_range.end - e.time_range.start) / 1e3)
@@ -101,6 +109,33 @@ def device_and_event_ms(calls, reps):
     return {label: {"device_ms": statistics.median(device[label]),
                     "event_ms": statistics.median(event[label]),
                     "kernel": names[label]} for label in calls}
+
+
+def host_us(calls):
+    """{label: median host microseconds of one call} of calls (label -> fn,
+    a C entry returning a cudaError_t or a wrapper): 20 warm-up calls each,
+    then three turns of 400 calls each timed alone; the median of a turn's
+    calls, and of the three turns."""
+    import torch
+    for label, call in calls.items():       # built, loaded, warm
+        for _ in range(20):
+            err = call()
+            if isinstance(err, int) and err:
+                sys.exit(f"{label}: CUDA error {err}")
+    torch.cuda.synchronize()
+    turns = {label: [] for label in calls}
+    for _ in range(3):
+        for label, call in calls.items():
+            times = []
+            for i in range(400):
+                t = time.perf_counter()
+                call()
+                times.append(time.perf_counter() - t)
+                if i % 50 == 49:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            turns[label].append(statistics.median(times) * 1e6)
+    return {label: statistics.median(v) for label, v in turns.items()}
 
 
 def launch_host_us(libs, c_fn, smi):
@@ -145,25 +180,7 @@ def launch_host_us(libs, c_fn, smi):
         "steepest_neighbor C entry, queries made again": lambda: steep_re(
             order.data_ptr(), out_o.data_ptr(), 8, 16, 128, offs, stream),
         "ops.steepest_neighbor": lambda: ops.steepest_neighbor(order, 6)}
-    for label, call in calls.items():       # built, loaded, warm
-        for _ in range(20):
-            err = call()
-            if isinstance(err, int) and err:
-                sys.exit(f"{label}: CUDA error {err}")
-    torch.cuda.synchronize()
-    turns = {label: [] for label in calls}
-    for _ in range(3):
-        for label, call in calls.items():
-            times = []
-            for i in range(400):
-                t = time.perf_counter()
-                call()
-                times.append(time.perf_counter() - t)
-                if i % 50 == 49:
-                    torch.cuda.synchronize()
-            torch.cuda.synchronize()
-            turns[label].append(statistics.median(times) * 1e6)
-    reading = {label: statistics.median(v) for label, v in turns.items()}
+    reading = host_us(calls)
     for label, us in reading.items():
         print(f"launch host time, {label}: {us:.2f} us (median of 3 turns "
               f"of 400 calls; {smi})", flush=True)

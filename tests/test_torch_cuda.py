@@ -264,27 +264,66 @@ def test_block_pathcompress_kernel_vs_plain(cuda, n, block, rounds, config,
         1 if config == "shared" else rounds)
 
 
+def _bag_case(v, d, b, l, how, id_dtype, table_dtype, device):
+    """A normal table and ids from [-3, V + 5) (bag 0 all padding), laid
+    out as `how` says: "" contiguous; "table+1" / "ids+1" a view one
+    element past a 16-byte boundary; "big" ids past int32's range (int64)
+    or at its ends (int32); "bst" BST's field 1 (ids in [V/2, V), -1 pads
+    drawn as data/recsys.py draws them)."""
+    rng = np.random.default_rng(v + d)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(
+        device, table_dtype)
+    ids = rng.integers(-3, v + 5, size=(b, l))
+    if how == "big":
+        big = ([2**31, 2**32 + 1, 2**62, -2**40] if id_dtype == torch.int64
+               else [2**31 - 1, -2**31])
+        ids.reshape(-1)[::3] = np.resize(big, ids.reshape(-1)[::3].size)
+    if how == "bst":
+        x = rng.integers(-1, v // 2, size=(b, l))
+        ids = np.where(x >= 0, x + v // 2, -1)
+    if b:
+        ids[0] = -1
+    ids = torch.from_numpy(ids).to(device, id_dtype)
+    if how == "table+1":
+        table = torch.empty(v * d + 1, dtype=table_dtype,
+                            device=device)[1:].view(v, d).copy_(table)
+    if how == "ids+1":
+        ids = torch.empty(b * l + 1, dtype=id_dtype,
+                          device=device)[1:].view(b, l).copy_(ids)
+    return table, ids
+
+
 @pytest.mark.parametrize("table_dtype,tol", [(torch.float32, 1e-5),
                                              (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("v,d,b,l", [(256, 32, 64, 16), (96, 40, 12, 37),
-                                     (1000, 4, 300, 1)])
-def test_segment_bag_kernel_vs_plain(cuda, v, d, b, l, id_dtype, table_dtype,
-                                     tol):
+@pytest.mark.parametrize("v,d,b,l,how", [
+    (256, 32, 64, 16, ""), (96, 40, 12, 37, ""), (1000, 4, 300, 1, ""),
+    (500, 1, 64, 16, ""), (300, 8, 50, 16, ""), (200, 31, 40, 9, ""),
+    (200, 33, 40, 16, ""), (1000, 64, 100, 16, ""), (400, 160, 30, 5, ""),
+    (256, 32, 40, 17, ""), (256, 32, 20, 61, ""), (256, 16, 10, 100, ""),
+    (4096, 32, 65_536, 8, ""),        # several waves of blocks
+    (1000, 32, 0, 16, ""), (100, 0, 12, 4, ""), (0, 32, 12, 4, ""),
+    (256, 32, 64, 16, "table+1"), (256, 32, 64, 16, "ids+1"),
+    (256, 33, 40, 17, "table+1"), (256, 32, 64, 16, "big"),
+    (100_000, 32, 4096, 16, "bst")])
+def test_segment_bag_kernel_vs_plain(cuda, v, d, b, l, how, id_dtype,
+                                     table_dtype, tol):
     """ids from [-3, V + 5): -1 pads, other negative ids and ids >= V add
-    nothing; bag 0 is all padding."""
-    rng = np.random.default_rng(v + d)
-    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(
-        cuda, table_dtype)
-    ids = rng.integers(-3, v + 5, size=(b, l))
-    ids[0] = -1
-    ids = torch.from_numpy(ids).to(cuda, id_dtype)
+    nothing; bag 0 is all padding.  Any D, L, base alignment and size;
+    B = 0 and D = 0 launch nothing, V = 0 gives zeros."""
+    table, ids = _bag_case(v, d, b, l, how, id_dtype, table_dtype, cuda)
+    if how:
+        assert (table.data_ptr() % 16 != 0) == (how == "table+1")
+        assert (ids.data_ptr() % 16 != 0) == (how == "ids+1")
     key = str(table_dtype).removeprefix("torch.")
     before = bag_mod.launches[key]
     got = ops.embedding_bag(table, ids)
-    _close(got, ref.segment_bag_ref(table, ids), tol)
-    assert not got[0].any()
-    assert bag_mod.launches[key] == before + 1
+    want = (ref.segment_bag_ref(table, ids) if v else
+            torch.zeros((b, d), dtype=table_dtype, device=cuda))
+    _close(got, want, tol)
+    if b:
+        assert not got[0].any()
+    assert bag_mod.launches[key] == before + (1 if b and d else 0)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),

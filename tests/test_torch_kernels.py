@@ -27,8 +27,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import repro.configs.bst as bst_config
 import repro.core.steepest as jst
 from repro.core.steepest import neighbor_offsets
+from repro.data.recsys import bst_batch
 from repro.kernels import ops as j_ops, ref as jref
 from repro.kernels.block_pathcompress import block_pathcompress as j_bpc
 from repro.kernels.flash_attention import flash_attention as j_flash
@@ -269,6 +271,31 @@ def test_segment_bag_plain_vs_pallas_interpret(v, d, b, l, vb, bb, dtype):
     assert got.dtype == tt.dtype and tuple(got.shape) == (b, d)
     _close(got, want, BAG_TOL[dtype])
     assert not got[1].any() and not got[-1].any()     # all-padding bags
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_embedding_bag_bst_per_field_vs_pallas_interpret(dtype):
+    """BST's own calls at its smoke widths (`configs/bst.py::smoke_config`):
+    one call a multihot field, field f's ids offset by f * multihot_vocab
+    into the shared table, -1 pads kept, as `models/bst.py::user_tower`
+    gives them; ids as `data/recsys.py::bst_batch` draws them."""
+    cfg = bst_config.smoke_config()
+    b = bst_config.SMOKE_SHAPES["serve_p99"]["batch"]
+    multihot = bst_batch(cfg, b, seed=5)["multihot_ids"]
+    rng = _rng("bst", b)
+    table = rng.normal(size=(cfg.n_multihot_fields * cfg.multihot_vocab,
+                             cfg.embed_dim)).astype(np.float32)
+    jt, tt = _both(table, dtype)
+    for f in range(cfg.n_multihot_fields):
+        ids = multihot[:, f]
+        ids = np.where(ids >= 0, ids + f * cfg.multihot_vocab, -1).astype(
+            np.int32)
+        assert ids.shape == (b, cfg.multihot_len)
+        got = ops.embedding_bag(tt, torch.from_numpy(ids))
+        want = j_bag(jt, jnp.asarray(ids), interpret=True)
+        assert got.dtype == tt.dtype and tuple(got.shape) == (b,
+                                                              cfg.embed_dim)
+        _close(got, want, BAG_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
