@@ -49,7 +49,18 @@ seconds:
      serve_p99, both dtypes, each held to the plain version, with event
      time, device time (the two fields in turns) and bound; then the
      ptxas registers and spills of every bag instance (the four 16-byte
-     instances must not spill).
+     instances must not spill);
+  8. the graph domain (`configs/dpc_graph.py`) through
+     `repro_torch.topology.submit(domain="graph")`: the Freudenthal tet mesh
+     of a 256^3 grid (233,311,230 directed edges, built on the card) with
+     an `ms` query, a `cc` query on the top-10% mask and a pure-geometry
+     `cc` (mask = ones), and `random_1m` (`cc` with mask = ones and with a
+     top-10% mask), every launch count read as 0 after them (the graph path
+     has no kernel); graph ms and cc held to the grid path at connectivity
+     14 (which launches the fused kernel), geometry labels to n - 1,
+     `random_1m` to scipy's connected components; per-query peak device
+     memory, meta counts, warm query times and a profile of one graph ms
+     and one graph cc query.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -113,6 +124,12 @@ TOL = {"bfloat16": {"bag": 3e-2, "attn": 2e-2},
 # bf16 ulp (at most 2^-7 of the value): rtol 8e-3, plus atol 2e-3 near
 # zero.  The run prints the worst element's share of this limit.
 ATTN_BF16_FULL = (8e-3, 2e-3)
+# phase 8's tet mesh: the Freudenthal edge set of a 256^3 grid (configs/
+# dpc_graph.py's tet_* family at connectivity 14): 16,777,216 vertices and
+# 233,311,230 directed edges.  512^3 would need 15 GB of int32 edges
+# before any temporary; 256^3 is the largest cube whose query fits with a
+# wide margin (PERF.md section 4)
+TET_DIMS = (256, 256, 256)
 
 
 def phase(name, t0):
@@ -656,6 +673,190 @@ def standalone_kernels(order, conn, smi):
     return kernels
 
 
+def graph_path(smi, dev):
+    """Phase 8: the graph domain on the card (`configs/dpc_graph.py`), through
+    `repro_torch.topology.submit(domain="graph")`: the tet mesh of a 256^3
+    grid (an `ms` query on the order field, a `cc` query on the top-10% mask,
+    a pure-geometry `cc` with mask = ones) and `random_1m` (`cc` with mask =
+    ones and with a top-10% mask).  The graph path launches no kernel (JAX
+    computes it outside Pallas): every launch count is read as 0 after it.
+    Checks that trust no single path: graph `ms` and `cc` == the grid path at
+    connectivity 14 (whose ms launches the fused kernel twice, cc once),
+    geometry labels all n - 1, `random_1m` == scipy's connected components
+    relabelled to the largest vertex id.  Returns the phase's numbers."""
+    import torch
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch.configs.dpc_graph import SHAPES as GRAPH_SHAPES, \
+        full_config as graph_config
+    from repro_torch.core.connected_components import \
+        connected_components_grid
+    from repro_torch.core.ids import compute_order
+    from repro_torch.core.ms_segmentation import ms_segmentation
+    from repro_torch.core.steepest import neighbor_offsets
+    from repro_torch.data import grid_edge_list, perlin_noise, quantile, \
+        random_csr
+    from repro_torch.interop import canonical_tensor
+    from repro_torch.kernels import block_pathcompress, flash_attention, \
+        fused_local_phase, segment_bag, steepest_neighbor
+    from repro_torch.topology import TopologyRequest, submit
+
+    mods = (fused_local_phase, steepest_neighbor, block_pathcompress,
+            segment_bag, flash_attention)
+
+    def zero_launches():
+        for mod in mods:
+            for key in mod.launches:
+                mod.launches[key] = 0
+
+    def read_launches():
+        torch.cuda.synchronize()
+        return {mod.__name__.rsplit(".", 1)[1]: dict(mod.launches)
+                for mod in mods}
+
+    def gb(nbytes):
+        return nbytes / 1e9
+
+    cfg = graph_config()
+    conn, q = cfg.connectivity, cfg.threshold_quantile
+    numbers = {}
+    t0 = time.perf_counter()
+    print(f"  device memory allocated at the phase's start: "
+          f"{gb(torch.cuda.memory_allocated()):.3f} GB")
+
+    # 8a. inputs ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    s64, r64 = grid_edge_list(TET_DIMS, conn, device=dev)
+    want_edges = sum(int(np.prod([d - abs(o) for d, o in zip(TET_DIMS, off)]))
+                     for off in neighbor_offsets(3, conn))
+    check(s64.numel() == r64.numel() == want_edges and s64.dtype ==
+          torch.int64, f"tet mesh {TET_DIMS}: {want_edges} int64 edges")
+    senders, receivers = (canonical_tensor(e, dev) for e in (s64, r64))
+    del s64, r64
+    numbers["tet_edges"] = senders.numel()
+    numbers["tet_edge_list_peak_GB"] = gb(torch.cuda.max_memory_allocated())
+    field = perlin_noise(TET_DIMS, frequency=0.1, seed=SEED, device=dev)
+    order = compute_order(field)
+    mask = field > quantile(field, q)
+    del field
+    n = order.numel()
+    flat = {"order": order.reshape(-1), "mask": mask.reshape(-1),
+            "ones": torch.ones(n, dtype=torch.bool, device=dev)}
+    edges = dict(domain="graph", senders=senders, receivers=receivers)
+    spec = GRAPH_SHAPES["random_1m"]
+    n_rand = spec["n"]
+    indptr, recv = random_csr(n_rand, spec["avg_degree"], seed=0)
+    send = np.repeat(np.arange(n_rand, dtype=np.int64), np.diff(indptr))
+    rand_edges = dict(domain="graph", senders=canonical_tensor(send, dev),
+                      receivers=canonical_tensor(recv, dev))
+    rand_field = torch.from_numpy(np.random.default_rng(SEED).random(
+        n_rand, dtype=np.float32)).to(dev)
+    rand_masks = {"ones": torch.ones(n_rand, dtype=torch.bool, device=dev),
+                  "top10": rand_field > quantile(rand_field, q)}
+    numbers["random_1m_edges"] = int(send.size)
+    print(f"  tet mesh {TET_DIMS} (connectivity {conn}): {n} vertices, "
+          f"{numbers['tet_edges']} directed edges, int32 "
+          f"{gb(2 * senders.numel() * 4):.3f} GB; random_1m: {n_rand} "
+          f"vertices, {numbers['random_1m_edges']} directed edges")
+    phase("graph inputs", t0)
+
+    # 8b. the graph path, counts set to 0 just before and read just after --
+    t0 = time.perf_counter()
+    requests = {
+        "tet ms": TopologyRequest("ms", order=flat["order"], **edges),
+        "tet cc": TopologyRequest("cc", mask=flat["mask"], **edges),
+        "tet geometry cc": TopologyRequest("cc", mask=flat["ones"], **edges),
+        "random_1m cc": TopologyRequest("cc", mask=rand_masks["ones"],
+                                        **rand_edges),
+        "random_1m top-10% cc": TopologyRequest(
+            "cc", mask=rand_masks["top10"], **rand_edges)}
+    zero_launches()
+    res, peak = {}, {}
+    for name, req in requests.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = submit(req, dev)
+        torch.cuda.synchronize()
+        peak[name] = gb(torch.cuda.max_memory_allocated())
+    launches = read_launches()
+    print(f"  kernel launches on the graph path: {launches}")
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          "the graph path launches no kernel (JAX computes it outside "
+          "Pallas)")
+    for name, r in res.items():
+        for k in ("labels", "ascending", "descending", "segmentation"):
+            t = getattr(r, k)
+            if t is not None:
+                check(t.dtype == torch.int32 and t.device.type == dev.type
+                      and t.dim() == 1, f"{name} {k} is a 1-D int32 tensor "
+                      f"on {dev.type}")
+        numbers[f"{name} meta"] = r.meta
+        numbers[f"{name} peak_GB"] = peak[name]
+        print(f"  {name}: meta {r.meta}, peak device memory "
+              f"{peak[name]:.3f} GB ({smi})")
+    phase("graph path", t0)
+
+    # 8c. checks that trust no single path ----------------------------------
+    t0 = time.perf_counter()
+    zero_launches()
+    grid_ms = ms_segmentation(order, conn)
+    grid_cc = connected_components_grid(mask, conn)
+    grid_launches = read_launches()["fused_local_phase"]
+    print(f"  kernel launches of the grid cross-check: {grid_launches}")
+    check(grid_launches == {"manifold": 2, "cc": 1},
+          "the grid cross-check launched the fused kernel (ms 2, cc 1)")
+    g = res["tet ms"]
+    for k in ("ascending", "descending", "segmentation"):
+        check(torch.equal(getattr(g, k), getattr(grid_ms, k).reshape(-1)),
+              f"graph ms {k} == grid ms_segmentation at connectivity {conn}")
+    check(torch.equal(res["tet cc"].labels, grid_cc.labels.reshape(-1)),
+          f"graph cc labels == grid cc at connectivity {conn}")
+    check(bool((res["tet geometry cc"].labels == n - 1).all()),
+          "pure-geometry labels are all n - 1 (the tet mesh is connected)")
+    pair = g.descending.long() * n + g.ascending.long()
+    numbers["tet_segments"] = torch.unique(pair).numel()
+    numbers["tet_segments_by_int32_hash"] = torch.unique(
+        g.segmentation).numel()
+    numbers["tet_cc_components"] = torch.unique(
+        res["tet cc"].labels).numel() - 1
+    del grid_ms, grid_cc, pair
+    s_np, r_np = send, recv.astype(np.int64)
+    for key, label in (("ones", "random_1m cc"),
+                       ("top10", "random_1m top-10% cc")):
+        m = rand_masks[key].cpu().numpy()
+        keep = m[s_np] & m[r_np]
+        adj = sp.coo_matrix((np.ones(int(keep.sum()), np.int8),
+                             (s_np[keep], r_np[keep])),
+                            shape=(n_rand, n_rand)).tocsr()
+        n_comp, lab = connected_components(adj, directed=False)
+        top = np.full(n_comp, -1, np.int64)
+        np.maximum.at(top, lab, np.arange(n_rand))
+        want = np.where(m, top[lab], -1).astype(np.int32)
+        got = res[label].labels.cpu().numpy()
+        n_bad = int((got != want).sum())
+        numbers[f"{label} components"] = int(np.unique(want[m]).size)
+        check(n_bad == 0, f"{label} == scipy connected_components "
+              f"relabelled to the largest vertex id ({n_bad} differ)")
+    print(f"  graph ms == grid ms and graph cc == grid cc at connectivity "
+          f"{conn} ({TET_DIMS}); geometry labels all n - 1; random_1m == "
+          f"scipy (ones and top-10% masks)")
+    phase("graph checks", t0)
+
+    # 8d. numbers: warm query times, profiles --------------------------------
+    t0 = time.perf_counter()
+    for name, req in requests.items():
+        numbers[f"{name} query_ms"] = event_ms(lambda: submit(req, dev), 3)
+        print(f"  {name}: warm query {numbers[f'{name} query_ms']:.3f} ms "
+              f"(median of 3, CUDA events) ({smi})")
+    for name in ("tet ms", "tet cc"):
+        profile(lambda: submit(requests[name], dev), f"graph {name} query",
+                top=8)
+    for k, v in numbers.items():
+        print(f"  {k}: {v}")
+    phase("graph numbers", t0)
+    return numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -914,6 +1115,10 @@ def main():
 
     # 7. the four stand-alone kernels behind repro_torch.kernels.ops --------
     kernels += standalone_kernels(order, conn, smi)
+
+    # 8. the graph domain ---------------------------------------------------
+    del order, mask, ms, cc, inputs, f, desc, asc
+    graph_path(smi, dev)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

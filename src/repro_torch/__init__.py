@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of `repro` (Distributed Path Compression, Will et al.
 2024): Morse-Smale segmentations and connected components of structured
-grids by pointer doubling.
+grids and edge-list graphs by pointer doubling.
 
 The package mirrors `repro`'s module names, so each JAX module has its
 counterpart here at the same relative path.  It imports torch and numpy,

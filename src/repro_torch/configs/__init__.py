@@ -1,3 +1,3 @@
 """Workload configurations of the port (copies of `repro/configs`'s, so the
-port reads no module of the JAX package).  This slice carries the paper's
-structured-grid workload, `dpc_grid`."""
+port reads no module of the JAX package): the paper's structured-grid
+workload, `dpc_grid`, and its edge-list one, `dpc_graph`."""

@@ -1,21 +1,32 @@
 """Core library of the port: order field, steepest init, path compression,
-Morse-Smale segmentation and connected components on structured grids.
-The graph and distributed backends come in later slices of the port."""
+Morse-Smale segmentation and connected components on structured grids and
+edge-list graphs, the boundary-table machinery and run statistics of the
+distributed backends, and the label-propagation baseline.  The
+distributed backends come in later slices of the port; JAX's deprecated
+query shims are not ported (`topology.submit` is the entry point)."""
 from .ids import compute_order, inverse_permutation, flat_ids, compact_labels
 from .pathcompress import (path_compress, path_compress_unrolled, jump,
                            is_converged)
-from .steepest import grid_steepest, grid_mask_argmax, neighbor_offsets, \
-    shift_fill
-from .ms_segmentation import (ms_segmentation, descending_manifold,
-                              ascending_manifold, extrema, MSSegmentation)
+from .steepest import (grid_steepest, grid_mask_argmax, graph_steepest,
+                       graph_mask_argmax, neighbor_offsets, shift_fill)
+from .ms_segmentation import (ms_segmentation, ms_segmentation_graph,
+                              descending_manifold, ascending_manifold,
+                              extrema, MSSegmentation)
 from .connected_components import (connected_components_grid,
+                                   connected_components_graph,
                                    component_sizes, CCResult)
+from .baseline_cc import label_propagation_grid, extract_masked_edges
+from .stats import DPCStats, GraphDPCStats, STAT_FIELDS, stats_as_dict
 
 __all__ = [
     "compute_order", "inverse_permutation", "flat_ids", "compact_labels",
     "path_compress", "path_compress_unrolled", "jump", "is_converged",
-    "grid_steepest", "grid_mask_argmax", "neighbor_offsets", "shift_fill",
-    "ms_segmentation", "descending_manifold", "ascending_manifold",
-    "extrema", "MSSegmentation", "connected_components_grid",
+    "grid_steepest", "grid_mask_argmax", "graph_steepest", "graph_mask_argmax",
+    "neighbor_offsets", "shift_fill",
+    "ms_segmentation", "ms_segmentation_graph", "descending_manifold",
+    "ascending_manifold", "extrema", "MSSegmentation",
+    "connected_components_grid", "connected_components_graph",
     "component_sizes", "CCResult",
+    "label_propagation_grid", "extract_masked_edges",
+    "DPCStats", "GraphDPCStats", "STAT_FIELDS", "stats_as_dict",
 ]

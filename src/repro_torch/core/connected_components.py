@@ -15,7 +15,9 @@ from typing import NamedTuple
 import torch
 
 from .pathcompress import path_compress
-from .steepest import neighbor_offsets, shift_fill
+from .steepest import (compact, graph_edges, graph_mask_argmax,
+                       graph_mask_argmax_pairs, neighbor_offsets,
+                       segment_max_into, shift_fill)
 
 
 class CCResult(NamedTuple):
@@ -45,6 +47,25 @@ def _grid_stitch(d: torch.Tensor, mask_flat: torch.Tensor, shape,
     return out
 
 
+def _graph_stitch(d: torch.Tensor, senders: torch.Tensor,
+                  receivers: torch.Tensor) -> torch.Tensor:
+    """One stitch pass on an edge-list graph: d[d[s]] <- max(d[d[s]], d[r])
+    over the edges given, which must be the query's stitch pairs (both ends
+    masked, ids as JAX's gather reads them).  JAX scatters every edge and
+    drops the index n it gives the others; those pairs never change between
+    rounds, so `connected_components_graph` keeps only the valid ones.
+
+    A masked pointer never points below its vertex (d[v] >= v: the init
+    takes the max with self, the stitch and compression only raise it), so
+    out[t] starts at d[t] >= t and a pair whose d[r] is not above d[s]
+    changes nothing.  Only the others are scattered: once labels converge,
+    every pair of a component names one root, and scattering them all
+    would send every update to that one address (190 ms a pure-geometry
+    query on a 256^3 tet mesh, PERF.md)."""
+    tgt, val = d.index_select(0, senders), d.index_select(0, receivers)
+    return segment_max_into(d.clone(), *compact(val > tgt, tgt, val))
+
+
 def _cc_fixpoint(d0: torch.Tensor, stitch_fn, max_rounds: int = 64) -> CCResult:
     d, its = path_compress(d0)
     rounds, changed = 0, True
@@ -70,6 +91,28 @@ def connected_components_grid(mask: torch.Tensor, connectivity: int = 6,
         d, mask_flat, mask.shape, connectivity))
     return CCResult(res.labels.reshape(mask.shape), res.n_rounds,
                     res.n_compress_iter)
+
+
+def connected_components_graph(mask: torch.Tensor, senders: torch.Tensor,
+                               receivers: torch.Tensor) -> CCResult:
+    """Mask-implicit connected components on an edge-list graph.  Pass both
+    edge directions for undirected graphs.  mask=ones labels pure geometry
+    (paper: CC "computed on pure geometry without any scalar data").
+
+    The pointer init takes JAX's bitwise `mask[s] & mask[r]` (see
+    `graph_mask_argmax`), the stitch the bool mask.  With a bool mask
+    and every sender in range both use the same pairs, compacted once."""
+    n = mask.shape[0]
+    m = mask.bool()
+    gs, gr, seg_ok = graph_edges(senders, receivers, n)
+    both = m.index_select(0, gs) & m.index_select(0, gr)
+    pairs = compact(both, gs, gr)
+    del both
+    if mask.dtype == torch.bool and seg_ok is None:
+        d0 = graph_mask_argmax_pairs(m, *pairs)
+    else:
+        d0 = graph_mask_argmax(mask, senders, receivers)
+    return _cc_fixpoint(d0, lambda d: _graph_stitch(d, *pairs))
 
 
 def component_sizes(labels: torch.Tensor, num_segments: int | None = None):

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from .pathcompress import path_compress
-from .steepest import grid_steepest, id_dtype_for
+from .steepest import graph_steepest, grid_steepest, id_dtype_for
 
 
 class MSSegmentation(NamedTuple):
@@ -64,6 +64,19 @@ def ms_segmentation(order: torch.Tensor, connectivity: int = 6,
     seg = _pair_hash(desc, asc, order.numel())
     return MSSegmentation(asc.reshape(order.shape), desc.reshape(order.shape),
                           seg.reshape(order.shape), it_a, it_d)
+
+
+def ms_segmentation_graph(order: torch.Tensor, senders: torch.Tensor,
+                          receivers: torch.Tensor, connectivity: int = 0
+                          ) -> MSSegmentation:
+    """Unstructured variant: edges as (senders, receivers) index lists."""
+    del connectivity
+    desc, it_d = path_compress(graph_steepest(order, senders, receivers,
+                                              descending=True))
+    asc, it_a = path_compress(graph_steepest(order, senders, receivers,
+                                             descending=False))
+    seg = _pair_hash(desc, asc, order.shape[0])
+    return MSSegmentation(asc, desc, seg, it_a, it_d)
 
 
 def extrema(order: torch.Tensor, connectivity: int = 6):

@@ -4,18 +4,22 @@ Callers describe WHAT they want in a `TopologyRequest` (query kind, domain,
 backend, payload) and `submit(request, device=...)` routes it:
 
     cc,  grid,  pure          core.connected_components.connected_components_grid
+    cc,  graph, pure          core.connected_components.connected_components_graph
     ms,  grid,  pure          core.ms_segmentation.ms_segmentation
+    ms,  graph, pure          core.ms_segmentation.ms_segmentation_graph
     manifold, grid, pure      core.ms_segmentation.descending/ascending_manifold
-    threshold_sweep, grid, pure   cc over `field > thresholds[k]`, stacked
+    threshold_sweep, *, pure  cc over `field > thresholds[k]`, stacked
 
 Payloads may be numpy arrays (JAX arrays read back as numpy) or tensors; they
 are moved to the device under JAX's x32 canonicalisation
-(`interop.canonical_tensor`).  The device defaults to ``"cuda"``; without
-CUDA the call raises unless ``device="cpu"`` is passed.
+(`interop.canonical_tensor`): int64 edge lists become int32.  The device
+defaults to ``"cuda"``; without CUDA the call raises unless
+``device="cpu"`` is passed.
 
 Validation and its messages, result fields and `meta` keys are the JAX
-facade's.  The graph domain and the distributed backend come in later
-slices of the port and raise NotImplementedError here.
+facade's, and so are the NotImplementedError gaps of the graph domain
+(manifolds; MS on distributed graphs).  The distributed backend comes in a
+later slice of the port and raises NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -25,36 +29,33 @@ from typing import Any
 import torch
 
 from ._device import resolve_device
-from .core.connected_components import connected_components_grid
-from .core.ms_segmentation import (ms_segmentation, descending_manifold,
-                                   ascending_manifold)
+from .core._table import check_table_mode
+from .core.connected_components import (connected_components_graph,
+                                        connected_components_grid)
+from .core.ms_segmentation import (ms_segmentation, ms_segmentation_graph,
+                                   descending_manifold, ascending_manifold)
 from .interop import canonical_tensor
 
 QUERIES = ("cc", "ms", "manifold", "threshold_sweep")
 DOMAINS = ("grid", "graph")
 BACKENDS = ("pure", "distributed")
-TABLE_MODES = ("replicated", "sharded")
-
-
-def check_table_mode(table_mode: str) -> None:
-    if table_mode not in TABLE_MODES:
-        raise ValueError(
-            f"table_mode must be one of {TABLE_MODES}, got {table_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class TopologyRequest:
     """One topology query.  Payload fields by query kind:
 
-    cc               mask       (grid: bool array of any extent)
+    cc               mask       (grid: bool array of any extent;
+                                 graph: (n,) bool + senders/receivers)
     ms / manifold    order      (int order field, as `core.compute_order`
                                  produces; `descending` picks the manifold
                                  direction)
     threshold_sweep  field + thresholds (labels CC of `field > t` per t)
 
-    `tag` is an opaque caller id, round-tripped onto the result.  The graph
-    and distributed fields are validated as in JAX; their routes come in
-    later slices.
+    Graph requests carry both directions of every undirected edge in
+    `senders`/`receivers`.  `tag` is an opaque caller id, round-tripped onto
+    the result.  The distributed fields are validated as in JAX; that
+    backend comes in a later slice.
     """
     query: str
     domain: str = "grid"
@@ -104,6 +105,14 @@ class TopologyRequest:
                 raise ValueError("distributed graph requests need decomp= "
                                  "(a core.GraphDecomp)")
 
+    def shape(self):
+        """Extent of the request's payload (the bucketing key input)."""
+        for f in ("mask", "order", "field"):
+            v = getattr(self, f)
+            if v is not None:
+                return tuple(v.shape)
+        raise ValueError("request carries no payload")
+
 
 @dataclasses.dataclass
 class TopologyResult:
@@ -124,10 +133,18 @@ class TopologyResult:
 
 
 def _unported(req: TopologyRequest) -> None:
-    if req.domain == "graph":
+    """The routes that raise: JAX's own graph gaps, with its messages, then
+    the distributed backend, not yet ported."""
+    if req.domain == "graph" and req.query == "manifold":
         raise NotImplementedError(
-            "graph-domain queries come with the port's graph slice "
-            "(ROADMAP Queue 1: graph init/CC); repro_torch runs grid queries")
+            "manifolds on distributed graphs need an order-field halo "
+            "through GraphDecomp's ghost layer (ROADMAP carried item); "
+            "for single-device graphs use query='ms'")
+    if (req.domain, req.query, req.backend) == ("graph", "ms",
+                                                "distributed"):
+        raise NotImplementedError(
+            "MS on distributed graphs needs the order-field halo "
+            "(ROADMAP carried item)")
     if req.backend == "distributed":
         raise NotImplementedError(
             "the distributed backend comes with the port's distributed "
@@ -135,9 +152,22 @@ def _unported(req: TopologyRequest) -> None:
             "torch.distributed); repro_torch runs backend='pure'")
 
 
+def _edges(req, device):
+    """(senders, receivers) on the device for a graph request, else None."""
+    if req.domain != "graph":
+        return None
+    return (canonical_tensor(req.senders, device),
+            canonical_tensor(req.receivers, device))
+
+
+def _cc(req, mask, edges):
+    if edges is not None:
+        return connected_components_graph(mask, *edges)
+    return connected_components_grid(mask, req.connectivity)
+
+
 def _submit_cc(req, device) -> TopologyResult:
-    res = connected_components_grid(canonical_tensor(req.mask, device),
-                                    req.connectivity)
+    res = _cc(req, canonical_tensor(req.mask, device), _edges(req, device))
     return TopologyResult("cc", labels=res.labels, tag=req.tag,
                           meta={"n_rounds": res.n_rounds,
                                 "n_compress_iter": res.n_compress_iter})
@@ -152,8 +182,11 @@ def _submit_manifold(req, device) -> TopologyResult:
 
 
 def _submit_ms(req, device) -> TopologyResult:
-    res = ms_segmentation(canonical_tensor(req.order, device),
-                          req.connectivity)
+    order, edges = canonical_tensor(req.order, device), _edges(req, device)
+    if edges is not None:
+        res = ms_segmentation_graph(order, *edges)
+    else:
+        res = ms_segmentation(order, req.connectivity)
     return TopologyResult("ms", ascending=res.ascending,
                           descending=res.descending,
                           segmentation=res.segmentation,
@@ -163,19 +196,18 @@ def _submit_ms(req, device) -> TopologyResult:
 
 
 def _submit_sweep(req, device) -> TopologyResult:
-    """CC of `field > t` for every threshold t, one field; the JAX facade
-    vmaps over thresholds, the port loops and stacks.  No threshold gives
-    int32 labels of shape (0, *field.shape) and runs no CC, as JAX's vmap
-    over zero rows does."""
+    """CC of `field > t` for every threshold t, one field, on either domain;
+    the JAX facade vmaps over thresholds, the port loops and stacks.  No
+    threshold gives int32 labels of shape (0, *field.shape) and runs no CC,
+    as JAX's vmap over zero rows does."""
     thr = canonical_tensor(req.thresholds, device).reshape(-1)
     field = canonical_tensor(req.field, device)
     if thr.numel() == 0:
         empty = torch.empty((0, *field.shape), dtype=torch.int32,
                             device=device)
         return TopologyResult("threshold_sweep", labels=empty, tag=req.tag)
-    labels = torch.stack([
-        connected_components_grid(field > t, req.connectivity).labels
-        for t in thr])
+    edges = _edges(req, device)
+    labels = torch.stack([_cc(req, field > t, edges).labels for t in thr])
     return TopologyResult("threshold_sweep", labels=labels, tag=req.tag)
 
 

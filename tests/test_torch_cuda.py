@@ -511,3 +511,61 @@ def test_flash_bf16_entry_points_meet_at_tc_max_head_dim(cuda, key, d):
         err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
                  1, 2, 2, 8, 8, d, 0.1, 0, _build.stream(q))
     assert err == 1
+
+
+# --- the graph domain: no kernel of its own, card == CPU ----------------------
+
+
+def _graph_cases():
+    """(name, n, senders, receivers): the Freudenthal edge list of a ragged
+    11x9x7 grid (connectivity 14), and a random multigraph whose ids leave
+    [0, n) on both sides (JAX's rules: a gather wraps a negative id once
+    and clamps, the segment max drops a sender out of range)."""
+    from repro_torch.data import grid_edge_list
+    shape = (11, 9, 7)
+    s, r = grid_edge_list(shape, 14, device="cpu")
+    yield "tet 11x9x7", int(np.prod(shape)), s.numpy(), r.numpy()
+    rng = np.random.default_rng(19)
+    n, m = 300, 900
+    a, b = rng.integers(-40, n + 40, m), rng.integers(-40, n + 40, m)
+    yield "random, ids out of range", n, np.concatenate([a, b]), \
+        np.concatenate([b, a])
+
+
+@pytest.mark.parametrize("geometry", [False, True])
+def test_graph_routes_card_equals_cpu(cuda, geometry):
+    """cc, ms and threshold_sweep with domain="graph" on the card equal the
+    same calls with device="cpu": labels, dtypes and every meta count."""
+    from repro_torch.interop import to_numpy
+    from repro_torch.topology import TopologyRequest, submit
+    for name, n, s, r in _graph_cases():
+        rng = np.random.default_rng(n)
+        field = rng.random(n).astype(np.float32)
+        mask = np.ones(n, bool) if geometry else field > 0.6
+        edges = dict(domain="graph", senders=s, receivers=r)
+        reqs = [TopologyRequest("cc", mask=mask, **edges),
+                TopologyRequest("ms", order=rng.permutation(n).astype(
+                    np.int32), **edges),
+                TopologyRequest("threshold_sweep", field=field,
+                                thresholds=np.array([0.2, 0.9], np.float32),
+                                **edges)]
+        for req in reqs:
+            got = submit(req, device=cuda)
+            want = to_numpy(submit(req, device="cpu"))
+            assert got.meta == want.meta, (name, req.query)
+            for f in ("labels", "ascending", "descending", "segmentation"):
+                w = getattr(want, f)
+                if w is not None:
+                    g = getattr(got, f)
+                    assert g.is_cuda, (name, req.query, f)
+                    np.testing.assert_array_equal(to_numpy(g), w)
+                    assert to_numpy(g).dtype == w.dtype
+
+
+def test_grid_edge_list_on_the_card(cuda):
+    from repro_torch.data import grid_edge_list
+    for shape, conn in (((11, 9, 7), 14), ((6, 5), 6), ((5, 4, 3), 26)):
+        got = grid_edge_list(shape, conn, device=cuda)
+        want = grid_edge_list(shape, conn, device="cpu")
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)

@@ -151,11 +151,21 @@ def test_validation_and_unported_routes(order):
         topology.submit(topology.TopologyRequest(
             "ms", order=order, backend="distributed", mesh=object()),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="graph"):
+    graph = dict(domain="graph", senders=np.zeros(1, int),
+                 receivers=np.zeros(1, int))
+    with pytest.raises(NotImplementedError, match="manifolds on distributed "
+                       "graphs need an order-field halo"):
         topology.submit(topology.TopologyRequest(
-            "cc", domain="graph", mask=np.ones(3, bool),
-            senders=np.zeros(1, int), receivers=np.zeros(1, int)),
+            "manifold", order=np.arange(3, dtype=np.int32), **graph),
             device="cpu")
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        topology.submit(topology.TopologyRequest(
+            "cc", mask=np.ones(3, bool), backend="distributed",
+            mesh=object(), decomp=object(), **graph), device="cpu")
+    with pytest.raises(NotImplementedError, match="MS on distributed graphs"):
+        topology.submit(topology.TopologyRequest(
+            "ms", order=np.arange(3, dtype=np.int32), backend="distributed",
+            mesh=object(), decomp=object(), **graph), device="cpu")
     res = topology.submit_many([topology.TopologyRequest(
         "manifold", order=order, tag=i) for i in range(2)], device="cpu")
     assert [r.tag for r in res] == [0, 1]
