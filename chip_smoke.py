@@ -60,7 +60,23 @@ seconds:
      14 (which launches the fused kernel), geometry labels to n - 1,
      `random_1m` to scipy's connected components; per-query peak device
      memory, meta counts, warm query times and a profile of one graph ms
-     and one graph cc query.
+     and one graph cc query;
+  9. the distributed grid backend (`repro_torch.core.distributed`), built
+     kernels only (the ranks load what phase 2 built): 9a one rank over
+     NCCL, layout (1, 1, 1), on phase 4's inputs (one 514^3 extended
+     block): ms (both manifolds) and cc in both table modes, labels equal
+     to phase 4's, peaks, warm times beside the pure queries and a profile
+     of one cc call; 9b two ranks sharing the card over gloo (NCCL refuses
+     two ranks on one card), the same generator at 1024x512x512, layout
+     (2,), a 512^3 block a rank: labels gathered to this process equal
+     the pure path's, both ranks' stats equal, times with the caveat that
+     two processes time-share the card and gloo stages every exchange
+     through the host; 9c eight ranks over gloo, 97x61x43 and 128^3 over
+     (2, 2, 2), connectivity 6 and 26, both table modes, the mask gathered
+     and not: each rank's labels equal the pure path's, stats equal their
+     closed forms, and each rank's ghost-masked fused launch equals the
+     plain version.  The fused kernel's launches on these paths go into
+     the kernels line as `launches_distributed`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -130,6 +146,11 @@ ATTN_BF16_FULL = (8e-3, 2e-3)
 # before any temporary; 256^3 is the largest cube whose query fits with a
 # wide margin (PERF.md section 4)
 TET_DIMS = (256, 256, 256)
+# phase 9b: grid_512's generator at twice its extent along x, two ranks of
+# one 512^3 block each (layout (2,)); 9c: ragged and 128^3 cases over
+# (2, 2, 2) as (shape, mask probability, seed)
+DIST_B_SHAPE = (1024, 512, 512)
+DIST_C_CASES = ((RAGGED, 0.3, 97), ((128, 128, 128), 0.3, 128))
 
 
 def phase(name, t0):
@@ -857,12 +878,435 @@ def graph_path(smi, dev):
     return numbers
 
 
+def _src_path():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+
+def _fused_launches():
+    from repro_torch.kernels import fused_local_phase as kmod
+    return dict(kmod.launches)
+
+
+def _zero_fused_launches():
+    from repro_torch.kernels import fused_local_phase as kmod
+    for mode in kmod.launches:
+        kmod.launches[mode] = 0
+
+
+def _dist_query(query, block, mesh, shape, conn, mode):
+    """One call of the port's distributed backend: "desc" / "asc" manifold
+    of block[0], cc of block[1] with the mask gathered ("cc") or not
+    ("cc_nogather")."""
+    from repro_torch.core.distributed import (
+        distributed_connected_components, distributed_manifold)
+    if query in ("desc", "asc"):
+        return distributed_manifold(block[0], mesh, shape, conn,
+                                    descending=query == "desc",
+                                    table_mode=mode)
+    return distributed_connected_components(
+        block[1], mesh, shape, conn, gather_mask=query == "cc",
+        table_mode=mode)
+
+
+def _closed_forms(dec, conn, query, mode, stats, masked):
+    """The DPCStats fields that have a closed form in the decomposition
+    (`masked`: masked in-domain table slots, for cc)."""
+    from repro_torch.core.distributed import _ShardGeom
+    f32, isz = np.float32, 4
+    gm, cc = query == "cc", query.startswith("cc")
+    rounds = int(stats.exchange_rounds)
+    want = {"pad_fraction": f32(dec.pad_fraction), "converged": 1,
+            "masked_ghost_fraction": (f32(masked) / f32(max(
+                dec.n_valid_slots, 1)) if cc else f32(1.0))}
+    if mode == "replicated":
+        want.update(comm_phases=1, exchange_rounds=0,
+                    ghost_bytes=f32(dec.n_valid_slots * isz)
+                    + (f32(dec.n_valid_slots) if gm else f32(0.0)),
+                    table_bytes_peak=f32(dec.table_size * (isz + cc)))
+    else:
+        geom = _ShardGeom(dec, None, conn)
+        halo = geom.stack_size - geom.rows
+        if cc:
+            want.update(comm_phases=rounds + 1, ghost_bytes=f32(halo * isz)
+                        * (f32(rounds) + f32(1)) + (f32(halo) if gm
+                                                    else f32(0.0)),
+                        table_bytes_peak=f32((2 * geom.stack_size + geom.rows)
+                                             * isz + geom.stack_size))
+        else:
+            want.update(comm_phases=rounds,
+                        ghost_bytes=f32(halo * isz) * f32(rounds),
+                        table_bytes_peak=f32((geom.stack_size + geom.rows)
+                                             * isz))
+    for field, w in want.items():
+        got = getattr(stats, field).item()
+        check((np.float32(got) == w) if isinstance(w, np.float32)
+              else got == w, f"{query} {mode} conn {conn}: {field} {got} == "
+              f"its closed form {w}")
+
+
+def _ghost_masked_vs_plain(block, dec, mesh, conn, what):
+    """The distributed path's fused launch, with the ghost `self_mask` on
+    this rank's extended block (`local + 2` on each decomposed axis), held
+    to the plain version on the same inputs: pointers and rounds exactly
+    equal.  `block` is (order, mask) as the rank owns them.  Returns {mode:
+    (max abs error, rounds)}.  Collective (the halo shifts): every rank
+    calls it in the same order, outside any window where launches count."""
+    from repro_torch.core.distributed import _extend, _pad_block
+    from repro_torch.kernels import fused_local_phase as kmod, ref
+    ghost = dec.on_device("ghost", mesh.device)
+    out = {}
+    for kind, fill, field in (("manifold", -1, block[0]),
+                              ("cc", False, block[1])):
+        ext = _extend(_pad_block(field, dec, mesh, fill), dec, mesh, fill)
+        got, r = kmod.fused_local_phase(ext, conn, mode=kind,
+                                        self_mask=ghost)
+        want, wr = ref.fused_local_phase_ref(ext, conn, mode=kind,
+                                             self_mask=ghost)
+        e = int((got.long() - want.long()).abs().max())
+        check(got.dtype == want.dtype and e == 0 and r == wr,
+              f"{what} conn {conn} {kind}: ghost-masked kernel on the "
+              f"extended block {tuple(ext.shape)} == plain (max err {e}, "
+              f"rounds {r} vs {wr})")
+        out[kind] = (e, r)
+        del ext, got, want
+    return out
+
+
+def _rank_setup(rank, world, store, backend, device):
+    """A rank of phase 9: the port on the path, the card, the group."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, _src_path())
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+
+
+def _rank_9b(rank, store, tmp, shape, conn, device):
+    """Phase 9b, one of two ranks sharing the card over gloo: ms (both
+    manifolds) and cc of its 512^3 block in both table modes; checks the
+    modes agree, writes the replicated labels, stats, launch counts and
+    warm times (median of 3, CUDA events) to `tmp`."""
+    import torch
+    import torch.distributed as dist
+    _rank_setup(rank, 2, store, "gloo", device)
+    from repro_torch.core.distributed import _decomp_for, make_dpc_mesh
+    mesh = make_dpc_mesh((2,), device=device)
+    block = tuple(torch.from_numpy(np.load(os.path.join(
+        tmp, f"{what}{rank}.npy"))).to(device) for what in ("order", "mask"))
+    out = {"stats": {}, "ms": {}, "fused": {}}
+    on_card = device == "cuda"
+    _zero_fused_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for query in ("desc", "asc", "cc"):
+        got = {}
+        for mode in ("replicated", "sharded"):
+            got[mode], stats = _dist_query(query, block, mesh, shape, conn,
+                                           mode)
+            out["stats"][f"{query} {mode}"] = stats.as_dict()
+        check(torch.equal(got["replicated"], got["sharded"]),
+              f"9b rank {rank} {query}: replicated == sharded labels")
+        np.save(os.path.join(tmp, f"got_{query}{rank}.npy"),
+                got["replicated"].cpu().numpy())
+        del got
+    out["launches"] = _fused_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        out["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        out["fused"] = _ghost_masked_vs_plain(
+            block, _decomp_for(mesh, shape), mesh, conn, f"9b rank {rank}")
+        for mode in ("replicated", "sharded"):
+            for query, calls in (("ms", ("desc", "asc")), ("cc", ("cc",))):
+                out["ms"][f"{query} {mode}"] = event_ms(lambda: [_dist_query(
+                    q, block, mesh, shape, conn, mode) for q in calls], 3)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _rank_9c(rank, store, tmp, cases, device):
+    """Phase 9c, one of eight ranks sharing the card over gloo, layout
+    (2, 2, 2): each case's block through ms and cc in both table modes,
+    the mask gathered and not, held to the pure path on the card (each
+    rank runs it on the global input) and the stats to their closed forms;
+    and this rank's ghost-masked fused launch on its extended block held to
+    the plain version.  Writes launch counts to `tmp`."""
+    import torch
+    import torch.distributed as dist
+    _rank_setup(rank, 8, store, "gloo", device)
+    from repro_torch.core.connected_components import \
+        connected_components_grid
+    from repro_torch.core.distributed import _decomp_for, make_dpc_mesh
+    from repro_torch.core.ms_segmentation import (ascending_manifold,
+                                                  descending_manifold)
+    mesh = make_dpc_mesh((2, 2, 2), device=device)
+    launches, n_fused = {"manifold": 0, "cc": 0}, 0
+    err = {"manifold": 0, "cc": 0}
+    for shape, mask_p, seed in cases:
+        rng = np.random.default_rng(seed)
+        order = torch.from_numpy(rng.permutation(int(np.prod(shape))).reshape(
+            shape).astype(np.int32)).to(device)
+        mask = torch.from_numpy(rng.random(shape) < mask_p).to(device)
+        dec = _decomp_for(mesh, shape)
+        sl = dec.block_slices(mesh.coords)
+        block = (order[sl], mask[sl])
+        coords = dec.boundary_coords
+        real = (coords < np.asarray(dec.grid)).all(axis=1)
+        masked = int(mask.cpu().numpy()[tuple(coords[real].T)].sum())
+        for conn in (6, 26):
+            pure = {"desc": descending_manifold(order, conn)[0],
+                    "asc": ascending_manifold(order, conn)[0],
+                    "cc": connected_components_grid(mask, conn).labels}
+            pure["cc_nogather"] = pure["cc"]
+            kernel_rounds = {}
+            for mode in ("replicated", "sharded"):
+                for query in ("desc", "asc", "cc", "cc_nogather"):
+                    _zero_fused_launches()
+                    got, stats = _dist_query(query, block, mesh, shape, conn,
+                                             mode)
+                    for k, v in _fused_launches().items():
+                        launches[k] += v
+                    check(torch.equal(got, pure[query].reshape(shape)[sl]),
+                          f"9c rank {rank} {shape} conn {conn} {mode} "
+                          f"{query}: labels == the pure path's")
+                    _closed_forms(dec, conn, query, mode, stats, masked)
+                    kernel_rounds[mode, query] = int(stats.kernel_rounds)
+            if device != "cuda":
+                continue
+            fused = _ghost_masked_vs_plain(block, dec, mesh, conn,
+                                           f"9c rank {rank} {shape}")
+            for kind, (e, _) in fused.items():
+                err[kind] = max(err[kind], e)
+            n_fused += len(fused)
+            # the stats' kernel_rounds is the largest rank's
+            top = torch.tensor([fused["manifold"][1], fused["cc"][1]])
+            dist.all_reduce(top, op=dist.ReduceOp.MAX)
+            for mode in ("replicated", "sharded"):
+                check(kernel_rounds[mode, "desc"] == int(top[0])
+                      and kernel_rounds[mode, "cc"] == int(top[1]),
+                      f"9c {shape} conn {conn} {mode}: stats kernel_rounds "
+                      f"(desc {kernel_rounds[mode, 'desc']}, cc "
+                      f"{kernel_rounds[mode, 'cc']}) == the ranks' largest "
+                      f"({top.tolist()})")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "fused_compared": n_fused,
+                   "fused_err": err}, f)
+    dist.destroy_process_group()
+
+
+def distributed_path(smi, host, conn, q, dev):
+    """Phase 9: the distributed grid backend (`repro_torch.core.distributed`)
+    on the card (`dev`; with a CPU device, 9a runs over gloo and nothing is
+    timed: a rehearsal at small sizes).  `host` holds phase 4's order, mask
+    and pure labels on the host.  Returns the fused kernel's launches by
+    sub-phase, and by sub-phase and mode the (max abs error, rounds) of its
+    ghost-masked launches held to the plain version (on the card only)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core.connected_components import \
+        connected_components_grid
+    from repro_torch.core.distributed import _decomp_for, make_dpc_mesh
+    from repro_torch.core.ids import compute_order
+    from repro_torch.core.ms_segmentation import ms_segmentation
+    from repro_torch.data import perlin_noise, quantile
+
+    on_card = dev.type == "cuda"
+    launches, fused = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # 9a. one rank over NCCL at 512^3: one 514^3 extended block ------
+        t0 = time.perf_counter()
+        shape = tuple(host["order"].shape)
+        block = (host["order"].to(dev), host["mask"].to(dev))
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(os.path.join(
+                                    tmp, "store_9a"), 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_dpc_mesh((1, 1, 1), device=dev)
+            _zero_fused_launches()
+            peak, kernel_rounds = {}, {}
+            for mode in ("replicated", "sharded"):
+                for query, want in (("desc", "descending"),
+                                    ("asc", "ascending"), ("cc", "labels")):
+                    if on_card:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                    got, stats = _dist_query(query, block, mesh, shape, conn,
+                                             mode)
+                    if on_card:
+                        torch.cuda.synchronize()
+                        peak[f"{query} {mode}"] = \
+                            torch.cuda.max_memory_allocated() / 1e9
+                    check(torch.equal(got.cpu(), host[want]),
+                          f"9a {query} {mode}: labels == the pure path's "
+                          f"(phase 4)")
+                    print(f"  9a {query} {mode}: labels == pure, stats "
+                          f"{stats.as_dict()}, peak device memory "
+                          f"{peak.get(f'{query} {mode}')} GB ({smi})")
+                    kernel_rounds[mode, query] = int(stats.kernel_rounds)
+                    del got
+            launches["9a"] = _fused_launches()
+            print(f"  9a fused kernel launches (1 rank, {mesh.backend}, "
+                  f"extended block {tuple(n + 2 for n in shape)}, 6 calls): "
+                  f"{launches['9a']}")
+            check(not on_card or launches["9a"] == {"manifold": 4, "cc": 2},
+                  "9a: each distributed call launched the fused kernel once")
+            if on_card:
+                # the path's launch on the 514^3 block against the plain
+                # version, and the rounds the stats reported for it
+                fused["9a"] = _ghost_masked_vs_plain(
+                    block, _decomp_for(mesh, shape), mesh, conn, "9a")
+                for mode in ("replicated", "sharded"):
+                    for query, kind in (("desc", "manifold"), ("cc", "cc")):
+                        check(kernel_rounds[mode, query]
+                              == fused["9a"][kind][1],
+                              f"9a {query} {mode}: stats kernel_rounds "
+                              f"{kernel_rounds[mode, query]} == the "
+                              f"launch's {fused['9a'][kind][1]}")
+                print(f"  9a ghost-masked fused launch on the "
+                      f"{tuple(n + 2 for n in shape)} extended block == "
+                      f"plain (pointers and rounds; max err, rounds): "
+                      f"{fused['9a']}")
+                torch.cuda.empty_cache()
+            for mode in ("replicated", "sharded") if on_card else ():
+                ms_ms = event_ms(lambda: [_dist_query(
+                    qq, block, mesh, shape, conn, mode)
+                    for qq in ("desc", "asc")], 3)
+                cc_ms = event_ms(lambda: _dist_query(
+                    "cc", block, mesh, shape, conn, mode), 3)
+                print(f"  9a {mode}: distributed ms (both manifolds) "
+                      f"{ms_ms:.3f} ms, cc {cc_ms:.3f} ms (warm, median of "
+                      f"3, CUDA events; pure ms query "
+                      f"{host['ms_query_ms']:.3f} ms, cc query "
+                      f"{host['cc_query_ms']:.3f} ms, phase 6) ({smi})")
+            if on_card:
+                profile(lambda: _dist_query("cc", block, mesh, shape, conn,
+                                            "replicated"),
+                        "9a distributed cc, 1 rank, replicated", top=10)
+        finally:
+            dist.destroy_process_group()
+        del block
+        if on_card:
+            torch.cuda.empty_cache()
+        phase("distributed 9a: one rank, NCCL, 512^3", t0)
+
+        # 9b. two ranks sharing the card over gloo: 512^3 blocks ----------
+        t0 = time.perf_counter()
+        shape_b, half = DIST_B_SHAPE, DIST_B_SHAPE[0] // 2
+        field = perlin_noise(shape_b, frequency=0.1, seed=SEED, device=dev)
+        order = compute_order(field)
+        mask = field > quantile(field, q)
+        del field
+        pure = ms_segmentation(order, conn)
+        want = {"desc": pure.descending.cpu().numpy(),
+                "asc": pure.ascending.cpu().numpy()}
+        del pure
+        want["cc"] = connected_components_grid(mask, conn).labels.cpu(
+            ).numpy()
+        for rank in range(2):
+            sl = slice(rank * half, (rank + 1) * half)
+            np.save(os.path.join(tmp, f"order{rank}.npy"),
+                    order[sl].cpu().numpy())
+            np.save(os.path.join(tmp, f"mask{rank}.npy"),
+                    mask[sl].cpu().numpy())
+        print(f"  9b grid {shape_b}: {int(mask.sum())} masked voxels; pure "
+              f"path on the card before spawning")
+        del order, mask
+        if on_card:
+            torch.cuda.empty_cache()
+        mp.spawn(_rank_9b, args=(os.path.join(tmp, "store_9b"), tmp,
+                                 shape_b, conn, dev.type), nprocs=2,
+                 join=True)
+        outs = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        for query in ("desc", "asc", "cc"):
+            got = np.concatenate([np.load(os.path.join(
+                tmp, f"got_{query}{rank}.npy")) for rank in range(2)])
+            n_bad = int((got != want[query]).sum())
+            check(got.dtype == np.int32 and n_bad == 0,
+                  f"9b {query}: gathered labels == the pure path's over "
+                  f"{shape_b} ({n_bad} differ)")
+        check(outs[0]["stats"] == outs[1]["stats"],
+              "9b: both ranks report the same stats")
+        for key, s in outs[0]["stats"].items():
+            check(s["converged"] == 1, f"9b {key} converged")
+            print(f"  9b {key}: labels == pure, stats {s}")
+        launches["9b"] = {k: sum(o["launches"][k] for o in outs)
+                          for k in ("manifold", "cc")}
+        check(not on_card or launches["9b"] == {"manifold": 8, "cc": 4},
+              "9b: every distributed call launched the fused kernel once a "
+              "rank")
+        if on_card:
+            fused["9b"] = {kind: (max(o["fused"][kind][0] for o in outs),
+                                  max(o["fused"][kind][1] for o in outs))
+                           for kind in ("manifold", "cc")}
+            for key, s in outs[0]["stats"].items():
+                kind = "cc" if key.startswith("cc") else "manifold"
+                check(key.startswith("asc")
+                      or s["kernel_rounds"] == fused["9b"][kind][1],
+                      f"9b {key}: stats kernel_rounds {s['kernel_rounds']} "
+                      f"== the ranks' largest {fused['9b'][kind][1]}")
+            print(f"  9b ghost-masked fused launches on the {half + 2}x"
+                  f"{shape_b[1]}x{shape_b[2]} extended blocks == plain on "
+                  f"both ranks (pointers and rounds; max err, largest "
+                  f"rounds): {fused['9b']}")
+        for key in outs[0]["ms"]:
+            print(f"  9b {key}: {max(o['ms'][key] for o in outs):.3f} ms "
+                  f"(slower rank, warm, median of 3, CUDA events; two "
+                  f"processes time-share one card and every exchange is "
+                  f"staged through the host by gloo: a full-width "
+                  f"correctness run, not a scaling figure) ({smi})")
+        print(f"  9b per-rank peak device memory: "
+              f"{[o.get('peak_GB') for o in outs]} GB ({smi})")
+        print(f"  9b fused kernel launches (2 ranks, {half + 2}x"
+              f"{shape_b[1]}x{shape_b[2]} extended blocks): "
+              f"{launches['9b']}")
+        phase("distributed 9b: two ranks, gloo, 512^3 blocks", t0)
+
+        # 9c. eight ranks sharing the card over gloo, layout (2, 2, 2) ------
+        t0 = time.perf_counter()
+        mp.spawn(_rank_9c, args=(os.path.join(tmp, "store_9c"), tmp,
+                                 DIST_C_CASES, dev.type), nprocs=8, join=True)
+        outs = []
+        for rank in range(8):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        launches["9c"] = {k: sum(o["launches"][k] for o in outs)
+                          for k in ("manifold", "cc")}
+        if on_card:
+            fused["9c"] = {k: (max(o["fused_err"][k] for o in outs), None)
+                           for k in ("manifold", "cc")}
+        n_calls = 8 * len(DIST_C_CASES) * 8   # ranks x cases x calls a kind
+        check(not on_card or launches["9c"] == {"manifold": n_calls,
+                                                "cc": n_calls},
+              "9c: every distributed call launched the fused kernel once a "
+              "rank")
+        print(f"  9c {[c[0] for c in DIST_C_CASES]} over (2, 2, 2), "
+              f"connectivity 6 and "
+              f"26, both table modes, mask gathered and not: labels == the "
+              f"pure path's on every rank, stats == their closed forms; "
+              f"{sum(o['fused_compared'] for o in outs)} ghost-masked fused "
+              f"launches == plain (pointers and rounds); fused kernel "
+              f"launches {launches['9c']}")
+        phase("distributed 9c: eight ranks, gloo, ragged", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, fused
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
+    sys.path.insert(0, _src_path())
     from repro_torch.configs.dpc_grid import SHAPES, full_config
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import fused_local_phase as kmod
@@ -1117,8 +1561,25 @@ def main():
     kernels += standalone_kernels(order, conn, smi)
 
     # 8. the graph domain ---------------------------------------------------
+    # phase 9 holds the distributed path to these pure results: kept on the
+    # host, so that phase 8's device memory is what it was without them
+    host = {"order": order.cpu(), "mask": mask.cpu(),
+            "descending": ms.descending.cpu(),
+            "ascending": ms.ascending.cpu(), "labels": cc.labels.cpu(),
+            "ms_query_ms": numbers["ms_query_ms"],
+            "cc_query_ms": numbers["cc_query_ms"]}
     del order, mask, ms, cc, inputs, f, desc, asc
     graph_path(smi, dev)
+
+    # 9. the distributed grid backend ---------------------------------------
+    dist_launches, dist_fused = distributed_path(smi, host, conn, q, dev)
+    del host
+    for row in kernels[:2]:
+        mode = row["name"].split("/")[1]
+        row["launches_distributed"] = {k: v[mode]
+                                       for k, v in dist_launches.items()}
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            v[mode][0] for v in dist_fused.values()])
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

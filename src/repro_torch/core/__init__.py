@@ -1,9 +1,10 @@
 """Core library of the port: order field, steepest init, path compression,
 Morse-Smale segmentation and connected components on structured grids and
 edge-list graphs, the boundary-table machinery and run statistics of the
-distributed backends, and the label-propagation baseline.  The
-distributed backends come in later slices of the port; JAX's deprecated
-query shims are not ported (`topology.submit` is the entry point)."""
+distributed backends, the distributed grid backend over torch.distributed
+(`core.distributed`), and the label-propagation baseline.  The distributed
+graph backend comes in a later slice of the port; JAX's deprecated query
+shims are not ported (`topology.submit` is the entry point)."""
 from .ids import compute_order, inverse_permutation, flat_ids, compact_labels
 from .pathcompress import (path_compress, path_compress_unrolled, jump,
                            is_converged)
@@ -17,6 +18,9 @@ from .connected_components import (connected_components_grid,
                                    component_sizes, CCResult)
 from .baseline_cc import label_propagation_grid, extract_masked_edges
 from .stats import DPCStats, GraphDPCStats, STAT_FIELDS, stats_as_dict
+from .distributed import (BlockDecomp, DPCMesh, make_dpc_mesh,
+                          distributed_manifold,
+                          distributed_connected_components)
 
 __all__ = [
     "compute_order", "inverse_permutation", "flat_ids", "compact_labels",
@@ -29,4 +33,6 @@ __all__ = [
     "component_sizes", "CCResult",
     "label_propagation_grid", "extract_masked_edges",
     "DPCStats", "GraphDPCStats", "STAT_FIELDS", "stats_as_dict",
+    "BlockDecomp", "DPCMesh", "make_dpc_mesh", "distributed_manifold",
+    "distributed_connected_components",
 ]

@@ -569,3 +569,50 @@ def test_grid_edge_list_on_the_card(cuda):
         want = grid_edge_list(shape, conn, device="cpu")
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_distributed_one_rank_nccl_equals_pure(cuda, tmp_path):
+    """The distributed grid backend on a 1-rank NCCL group (FileStore) at
+    64^3, both table modes, the mask gathered and not: labels equal the pure
+    port's on the card, bit for bit, and the fused kernel runs once a call."""
+    import torch.distributed as dist
+    from repro_torch.core.connected_components import \
+        connected_components_grid
+    from repro_torch.core.distributed import (
+        distributed_connected_components, distributed_manifold,
+        make_dpc_mesh)
+    from repro_torch.core.ms_segmentation import (ascending_manifold,
+                                                  descending_manifold)
+    shape = (64, 64, 64)
+    order, _ = _inputs("manifold", shape, 64, cuda)
+    mask, _ = _inputs("cc", shape, 65, cuda)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_dpc_mesh((1, 1, 1), device=cuda)
+        assert mesh.backend == "nccl" and not mesh.staged
+        for conn in (6, 26):
+            want = {True: descending_manifold(order, conn)[0],
+                    False: ascending_manifold(order, conn)[0]}
+            want_cc = connected_components_grid(mask, conn).labels
+            for mode in ("replicated", "sharded"):
+                for desc in (True, False):
+                    before = dict(kmod.launches)
+                    got, stats = distributed_manifold(
+                        order, mesh, shape, conn, descending=desc,
+                        table_mode=mode)
+                    assert kmod.launches["manifold"] == \
+                        before["manifold"] + 1
+                    assert got.is_cuda and got.dtype == torch.int32
+                    assert torch.equal(got.reshape(-1), want[desc]), \
+                        (conn, mode, desc)
+                    assert int(stats.converged) == 1
+                    assert int(stats.kernel_rounds) >= 1
+                for gm in (True, False):
+                    got, stats = distributed_connected_components(
+                        mask, mesh, shape, conn, gather_mask=gm,
+                        table_mode=mode)
+                    assert torch.equal(got, want_cc), (conn, mode, gm)
+                    assert int(stats.converged) == 1
+    finally:
+        dist.destroy_process_group()
