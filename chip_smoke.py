@@ -66,17 +66,32 @@ seconds:
      NCCL, layout (1, 1, 1), on phase 4's inputs (one 514^3 extended
      block): ms (both manifolds) and cc in both table modes, labels equal
      to phase 4's, peaks, warm times beside the pure queries and a profile
-     of one cc call; 9b two ranks sharing the card over gloo (NCCL refuses
-     two ranks on one card), the same generator at 1024x512x512, layout
-     (2,), a 512^3 block a rank: labels gathered to this process equal
-     the pure path's, both ranks' stats equal, times with the caveat that
-     two processes time-share the card and gloo stages every exchange
-     through the host; 9c eight ranks over gloo, 97x61x43 and 128^3 over
-     (2, 2, 2), connectivity 6 and 26, both table modes, the mask gathered
-     and not: each rank's labels equal the pure path's, stats equal their
-     closed forms, and each rank's ghost-masked fused launch equals the
-     plain version.  The fused kernel's launches on these paths go into
-     the kernels line as `launches_distributed`.
+     of one cc call; then `topology.submit(backend="distributed")` for cc,
+     both manifolds, ms and a threshold sweep over the field's 0.6-0.9
+     quantiles (one batched call), each equal to the direct calls and the
+     pure routes, the sweep's fused launches equal to the plain version,
+     and the batched sweep's warm time beside four single calls; 9b two
+     ranks sharing the card over gloo (NCCL refuses two ranks on one card),
+     the same generator at 1024x512x512, layout (2,), a 512^3 block a
+     rank: labels gathered to this process equal the pure path's, both
+     ranks' stats equal, times with the caveat that two processes
+     time-share the card and gloo stages every exchange through the host;
+     a batched cc of two masks equals its single calls and issues as many
+     shifts, all-gathers and all-reduces as one; 9c eight ranks over gloo,
+     97x61x43 and 128^3 over (2, 2, 2), connectivity 6 and 26, both table
+     modes, the mask gathered and not: each rank's labels equal the pure
+     path's, stats equal their closed forms, and each rank's ghost-masked
+     fused launch equals the plain version.  The fused kernel's launches
+     on these paths go into the kernels line as `launches_distributed`;
+ 10. the distributed graph backend (`repro_torch.core.distributed_graph`),
+     gloo ranks sharing the card: 10a phase 8's tet mesh over two
+     contiguous partitions, cc of the top-10% mask and of mask = ones in
+     both table modes, the mask gathered and not, labels assembled in this
+     process equal to phase 8's, each rank's GraphDecomp host time and
+     peak host and device memory; 10b random_1m over eight partitions
+     (every partition adjacent to every other), a batch of four masks in
+     both table modes equal to its single calls, the first two equal to
+     phase 8's.  No kernel launches there.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -151,6 +166,17 @@ TET_DIMS = (256, 256, 256)
 # (2, 2, 2) as (shape, mask probability, seed)
 DIST_B_SHAPE = (1024, 512, 512)
 DIST_C_CASES = ((RAGGED, 0.3, 97), ((128, 128, 128), 0.3, 128))
+MODES = ("replicated", "sharded")
+# 9a's threshold sweep through the facade: the field's 0.6 .. 0.9 quantiles
+SWEEP_QS = (0.6, 0.7, 0.8, 0.9)
+# 9b's batch: the top-10% mask and the field's top 20%
+DIST_B_BATCH_Q = 0.8
+# phase 10a: phase 8's tet mesh over 2 contiguous partitions, two gloo
+# ranks; 10b: random_1m over 8, a batch of the masks above these quantiles
+# (the first two are phase 8's: all vertices and the top 10%)
+GRAPH_PARTS = 2
+RANDOM_PARTS = 8
+RANDOM_BATCH_QS = (None, 0.9, 0.8, 0.5)
 
 
 def phase(name, t0):
@@ -704,7 +730,8 @@ def graph_path(smi, dev):
     Checks that trust no single path: graph `ms` and `cc` == the grid path at
     connectivity 14 (whose ms launches the fused kernel twice, cc once),
     geometry labels all n - 1, `random_1m` == scipy's connected components
-    relabelled to the largest vertex id.  Returns the phase's numbers."""
+    relabelled to the largest vertex id.  Returns the phase's numbers and,
+    on the host, phase 10's inputs and the pure labels it is held to."""
     import torch
     import scipy.sparse as sp
     from scipy.sparse.csgraph import connected_components
@@ -875,7 +902,19 @@ def graph_path(smi, dev):
     for k, v in numbers.items():
         print(f"  {k}: {v}")
     phase("graph numbers", t0)
-    return numbers
+    # phase 10's inputs and references, on the host
+    dist_in = {"tet_send": senders.cpu().numpy(),
+               "tet_recv": receivers.cpu().numpy(),
+               "tet_mask": flat["mask"].cpu().numpy(),
+               "tet_pure": {"top10": res["tet cc"].labels.cpu().numpy(),
+                            "ones": res["tet geometry cc"].labels.cpu(
+                                ).numpy()},
+               "rand_send": send, "rand_recv": recv,
+               "rand_field": rand_field.cpu().numpy(),
+               "rand_pure": {"ones": res["random_1m cc"].labels.cpu(
+                   ).numpy(), "top10": res["random_1m top-10% cc"].labels.cpu(
+                   ).numpy()}}
+    return numbers, dist_in
 
 
 def _src_path():
@@ -957,7 +996,8 @@ def _ghost_masked_vs_plain(block, dec, mesh, conn, what):
     out = {}
     for kind, fill, field in (("manifold", -1, block[0]),
                               ("cc", False, block[1])):
-        ext = _extend(_pad_block(field, dec, mesh, fill), dec, mesh, fill)
+        ext = _extend(_pad_block(field[None], dec, mesh, fill), dec, mesh,
+                      fill)[0]
         got, r = kmod.fused_local_phase(ext, conn, mode=kind,
                                         self_mask=ghost)
         want, wr = ref.fused_local_phase_ref(ext, conn, mode=kind,
@@ -970,6 +1010,127 @@ def _ghost_masked_vs_plain(block, dec, mesh, conn, what):
         out[kind] = (e, r)
         del ext, got, want
     return out
+
+
+def _counted(mesh):
+    """Wrap a mesh's collectives with call counters; returns the dict."""
+    counts = {"shift": 0, "permute": 0, "all_gather": 0, "all_reduce": 0}
+    for name in counts:
+        def wrapped(*args, _f=getattr(mesh, name), _name=name, **kw):
+            counts[_name] += 1
+            return _f(*args, **kw)
+        setattr(mesh, name, wrapped)
+    return counts
+
+
+def _facade_9a(smi, host, block, mesh, shape, conn, direct, dev):
+    """9a's facade sub-phase on the one-rank mesh: `submit(backend=
+    "distributed")` for cc, both manifolds, ms and a threshold sweep over
+    the field's `SWEEP_QS` quantiles, in both table modes, each == the
+    direct calls (labels and stats, `direct`) and the pure routes (phase 4's
+    labels and segmentation; the pure sweep).  The sweep's batched call
+    launches the fused kernel once a mask, on the card held to the plain
+    version (pointers and rounds, and the rounds its stats report); then
+    the batched sweep's warm time beside four single distributed calls,
+    and its peak memory.  Returns (launches, fused errors)."""
+    import torch
+    from repro_torch.core.distributed import (
+        _decomp_for, _extend, _pad_block, distributed_connected_components)
+    from repro_torch.data import perlin_noise, quantile
+    from repro_torch.kernels import fused_local_phase as kmod, ref
+    from repro_torch.topology import TopologyRequest, submit
+    on_card = dev.type == "cuda"
+    field = perlin_noise(shape, frequency=0.1, seed=SEED, device=dev)
+    thr = np.array([quantile(field, qq) for qq in SWEEP_QS], np.float32)
+    pure_sweep = submit(TopologyRequest("threshold_sweep", field=field,
+                                        thresholds=thr, connectivity=conn),
+                        dev).labels
+    base = dict(backend="distributed", mesh=mesh, grid_shape=shape,
+                connectivity=conn)
+    rounds = {}
+    _zero_fused_launches()
+    for mode in MODES:
+        req = dict(base, table_mode=mode)
+        res = submit(TopologyRequest("cc", mask=block[1], **req))
+        check(torch.equal(res.labels.cpu(), host["labels"])
+              and res.stats == direct["cc", mode],
+              f"9a facade cc {mode} == the direct call and the pure route")
+        for desc, want, key in ((True, "descending", "desc"),
+                                (False, "ascending", "asc")):
+            res = submit(TopologyRequest("manifold", order=block[0],
+                                         descending=desc, **req))
+            check(torch.equal(res.labels.cpu(), host[want])
+                  and res.stats == direct[key, mode],
+                  f"9a facade manifold {want} {mode} == the direct call and "
+                  f"the pure route")
+        res = submit(TopologyRequest("ms", order=block[0], **req))
+        check(all(torch.equal(getattr(res, k).cpu(), host[k]) for k in (
+            "descending", "ascending", "segmentation"))
+              and res.stats == {"descending": direct["desc", mode],
+                                "ascending": direct["asc", mode]},
+              f"9a facade ms {mode}: both manifolds and the segmentation "
+              f"(pair hash with n = {int(np.prod(shape))}) == the pure ms "
+              f"query's, stats == the direct calls'")
+        res = submit(TopologyRequest("threshold_sweep", field=field,
+                                     thresholds=thr, **req))
+        check(torch.equal(res.labels, pure_sweep)
+              and res.stats["converged"] == [1] * len(SWEEP_QS),
+              f"9a facade threshold_sweep {mode} (K = {len(SWEEP_QS)}, one "
+              f"batched call) == the pure sweep")
+        rounds[mode] = res.stats["kernel_rounds"]
+        print(f"  9a facade {mode}: cc, manifolds, ms, sweep == direct and "
+              f"pure; sweep stats {res.stats}")
+        del res
+    launches = _fused_launches()
+    per_mode = {"manifold": 4, "cc": 1 + len(SWEEP_QS)}
+    check(not on_card or launches == {k: 2 * v for k, v in per_mode.items()},
+          f"9a facade: the fused kernel launched once a call and once a "
+          f"sweep mask ({launches})")
+    del pure_sweep
+    fused = {}
+    if on_card:
+        dec = _decomp_for(mesh, shape)
+        ghost = dec.on_device("ghost", dev)
+        masks = field[None] > torch.from_numpy(thr).to(dev).reshape(
+            -1, 1, 1, 1)
+        ext = _extend(_pad_block(masks, dec, mesh, False), dec, mesh, False)
+        err = 0
+        for k, x in enumerate(ext):
+            got, r = kmod.fused_local_phase(x, conn, mode="cc",
+                                            self_mask=ghost)
+            want, wr = ref.fused_local_phase_ref(x, conn, mode="cc",
+                                                 self_mask=ghost)
+            e = int((got.long() - want.long()).abs().max())
+            err = max(err, e)
+            check(e == 0 and r == wr and all(rounds[m][k] == r
+                                              for m in MODES),
+                  f"9a sweep mask {k}: the batch's ghost-masked launch on "
+                  f"the {tuple(x.shape)} extended block == plain (max err "
+                  f"{e}, rounds {r} vs {wr}; stats {rounds})")
+            del got, want
+        fused["cc"] = (err, max(max(v) for v in rounds.values()))
+        del ext
+        print(f"  9a facade sweep: {len(SWEEP_QS)} ghost-masked fused "
+              f"launches of the batch == plain (pointers and rounds; max "
+              f"err, rounds): {fused['cc']}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        submit(TopologyRequest("threshold_sweep", field=field,
+                               thresholds=thr, **base))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sweep_ms = event_ms(lambda: submit(TopologyRequest(
+            "threshold_sweep", field=field, thresholds=thr, **base)), 3)
+        single_ms = event_ms(lambda: [distributed_connected_components(
+            m, mesh, shape, conn) for m in masks], 3)
+        print(f"  9a distributed threshold_sweep, K = {len(SWEEP_QS)}, one "
+              f"batched call: {sweep_ms:.3f} ms; four single distributed "
+              f"cc calls: {single_ms:.3f} ms (warm, median of 3, CUDA "
+              f"events, replicated); sweep peak device memory {peak:.3f} GB "
+              f"({smi})")
+        del masks
+    del field, thr
+    return launches, fused
 
 
 def _rank_setup(rank, world, store, backend, device):
@@ -986,12 +1147,16 @@ def _rank_setup(rank, world, store, backend, device):
 def _rank_9b(rank, store, tmp, shape, conn, device):
     """Phase 9b, one of two ranks sharing the card over gloo: ms (both
     manifolds) and cc of its 512^3 block in both table modes; checks the
-    modes agree, writes the replicated labels, stats, launch counts and
-    warm times (median of 3, CUDA events) to `tmp`."""
+    modes agree; a batched cc of two masks against its single calls and
+    their collectives; writes the replicated labels, stats, launch and
+    collective counts and warm times (median of 3, CUDA events) to
+    `tmp`."""
     import torch
     import torch.distributed as dist
     _rank_setup(rank, 2, store, "gloo", device)
-    from repro_torch.core.distributed import _decomp_for, make_dpc_mesh
+    from repro_torch.core.distributed import (
+        _decomp_for, distributed_connected_components,
+        distributed_connected_components_batch, make_dpc_mesh)
     mesh = make_dpc_mesh((2,), device=device)
     block = tuple(torch.from_numpy(np.load(os.path.join(
         tmp, f"{what}{rank}.npy"))).to(device) for what in ("order", "mask"))
@@ -1012,6 +1177,35 @@ def _rank_9b(rank, store, tmp, shape, conn, device):
                 got["replicated"].cpu().numpy())
         del got
     out["launches"] = _fused_launches()
+    # a batched cc of B = 2 masks (the top-10% block and the top-20% one):
+    # each item == its single call, and the batch issues as many shifts,
+    # all-gathers and all-reduces as one single call (replicated)
+    cmesh = make_dpc_mesh((2,), device=device)
+    counts = _counted(cmesh)
+    mask2 = torch.from_numpy(np.load(os.path.join(
+        tmp, f"mask2_{rank}.npy"))).to(device)
+    _zero_fused_launches()
+    got, stats = distributed_connected_components_batch(
+        torch.stack([block[1], mask2]), cmesh, shape, conn)
+    out["batch_launches"] = _fused_launches()
+    out["batch_counts"] = dict(counts)
+    for k in counts:
+        counts[k] = 0
+    want2, stats2 = distributed_connected_components(mask2, cmesh, shape,
+                                                     conn)
+    out["single_counts"] = dict(counts)
+    want1 = torch.from_numpy(np.load(os.path.join(tmp, f"got_cc{rank}.npy")))
+    check(torch.equal(got[0].cpu(), want1) and torch.equal(got[1], want2),
+          f"9b rank {rank}: the batch's items == their single calls")
+    check(all(getattr(stats, f)[1].item() == v.item()
+              for f, v in zip(stats2._fields, stats2))
+          and stats.as_dict()["converged"] == [1, 1]
+          and out["batch_counts"] == out["single_counts"],
+          f"9b rank {rank}: batch stats == the single calls', collectives "
+          f"{out['batch_counts']} == one single call's "
+          f"{out['single_counts']}")
+    out["batch_stats"] = stats.as_dict()
+    del got, want1, want2, mask2
     if on_card:
         torch.cuda.synchronize()
         out["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1096,6 +1290,249 @@ def _rank_9c(rank, store, tmp, cases, device):
     dist.destroy_process_group()
 
 
+def _peak_host_gb():
+    """This process's peak resident host memory (ru_maxrss, kB on Linux)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _rank_10a(rank, store, tmp, n, device):
+    """Phase 10a, one of `GRAPH_PARTS` ranks sharing the card over gloo: the
+    tet mesh's GraphDecomp (numpy, timed), then cc of the top-10% mask and
+    of mask = ones in both table modes, the mask gathered and not; the
+    four variants' labels agree, and this rank's labels equal the pure
+    graph cc's at its owned vertices.  Writes the replicated gathered
+    labels, stats, times and memory to `tmp`."""
+    import torch
+    import torch.distributed as dist
+    _rank_setup(rank, GRAPH_PARTS, store, "gloo", device)
+    from repro_torch.core.distributed import make_dpc_mesh
+    from repro_torch.core.distributed_graph import (
+        GraphDecomp, distributed_connected_components_graph)
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    dec = GraphDecomp(n, np.load(os.path.join(tmp, "tet_send.npy")),
+                      np.load(os.path.join(tmp, "tet_recv.npy")),
+                      GRAPH_PARTS)
+    out = {"decomp_s": time.perf_counter() - t,
+           "decomp_host_peak_GB": _peak_host_gb(), "stats": {}, "ms": {},
+           "c_max": dec.c_max, "n_cut": dec.n_cut, "e_max": dec.e_max,
+           "owned": int(dec.owned_counts[rank])}
+    if rank == 0:
+        np.save(os.path.join(tmp, "owned_gid.npy"), dec.owned_gid)
+    mesh = make_dpc_mesh(GRAPH_PARTS, device=device)
+    gid = dec.owned_gid[rank, :dec.owned_counts[rank]]
+    masks = {"top10": torch.from_numpy(np.load(os.path.join(
+        tmp, "tet_mask.npy"))).to(device),
+        "ones": torch.ones(n, dtype=torch.bool, device=device)}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_fused_launches()
+    for name, m in masks.items():
+        want = torch.from_numpy(np.load(os.path.join(
+            tmp, f"tet_pure_{name}.npy"))[gid])
+        first = None
+        for mode in MODES:
+            for gm in (True, False):
+                got, stats = distributed_connected_components_graph(
+                    m, dec, mesh, gather_mask=gm, table_mode=mode)
+                out["stats"][f"{name} {mode} gather_mask={gm}"] = \
+                    stats.as_dict()
+                got = got.cpu()
+                if first is None:
+                    first = got
+                    np.save(os.path.join(tmp, f"tet_{name}_{rank}.npy"),
+                            got.numpy())
+                check(torch.equal(got, first) and torch.equal(got, want),
+                      f"10a rank {rank} {name} {mode} gather_mask={gm}: "
+                      f"labels == the pure graph cc's at its vertices")
+    out["launches"] = _fused_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        out["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        for mode in MODES:
+            out["ms"][mode] = event_ms(
+                lambda: distributed_connected_components_graph(
+                    masks["top10"], dec, mesh, table_mode=mode), 3)
+    out["host_peak_GB"] = _peak_host_gb()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _rank_10b(rank, store, tmp, n, device):
+    """Phase 10b, one of `RANDOM_PARTS` ranks sharing the card over gloo:
+    random_1m's GraphDecomp (every partition adjacent to every other, so
+    the sharded schedule runs at the largest degree), then in both table
+    modes a batched cc of the `RANDOM_BATCH_QS` masks, each item == its
+    single call (labels and stats).  Writes the batch's labels and stats
+    to `tmp`."""
+    import torch
+    import torch.distributed as dist
+    _rank_setup(rank, RANDOM_PARTS, store, "gloo", device)
+    from repro_torch.core.distributed import make_dpc_mesh
+    from repro_torch.core.distributed_graph import (
+        GraphDecomp, _graph_shard_geom,
+        distributed_connected_components_graph,
+        distributed_connected_components_graph_batch)
+    t = time.perf_counter()
+    dec = GraphDecomp(n, np.load(os.path.join(tmp, "rand_send.npy")),
+                      np.load(os.path.join(tmp, "rand_recv.npy")),
+                      RANDOM_PARTS)
+    geom = _graph_shard_geom(dec)
+    out = {"decomp_s": time.perf_counter() - t, "d_max": geom.d_max,
+           "rounds": len(geom.round_perms), "stats": {}}
+    if rank == 0:
+        np.save(os.path.join(tmp, "rand_owned_gid.npy"), dec.owned_gid)
+    mesh = make_dpc_mesh(RANDOM_PARTS, device=device)
+    masks = torch.from_numpy(np.load(os.path.join(
+        tmp, "rand_masks.npy"))).to(device)
+    _zero_fused_launches()
+    for mode in MODES:
+        got, stats = distributed_connected_components_graph_batch(
+            masks, dec, mesh, table_mode=mode)
+        for b, m in enumerate(masks):
+            want, st = distributed_connected_components_graph(
+                m, dec, mesh, table_mode=mode)
+            check(torch.equal(got[b], want) and all(
+                getattr(stats, f)[b].item() == v.item()
+                for f, v in zip(st._fields, st)),
+                f"10b rank {rank} {mode}: batch item {b} == its single call")
+        out["stats"][mode] = stats.as_dict()
+        np.save(os.path.join(tmp, f"rand_{mode}_{rank}.npy"),
+                got.cpu().numpy())
+    out["launches"] = _fused_launches()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def distributed_graph_path(smi, g, dev):
+    """Phase 10: the distributed graph backend
+    (`repro_torch.core.distributed_graph`) on the card, gloo ranks sharing
+    it (`dev`; a CPU device runs the same ranks on the CPU: a rehearsal at
+    small sizes).  `g` holds phase 8's inputs and pure labels on the host.
+    10a: the tet mesh over `GRAPH_PARTS` contiguous partitions, top-10% and
+    geometry cc in both table modes, the mask gathered and not, the
+    assembled labels == phase 8's; each rank's GraphDecomp host time and
+    peak host and device memory.  10b: random_1m over `RANDOM_PARTS`, a
+    batch of four masks in both table modes == its single calls, the first
+    two == phase 8's.  The graph path launches no kernel: every count is
+    read as 0.  Returns the fused kernel's launches by sub-phase."""
+    import shutil
+    import tempfile
+    import types
+    import torch.multiprocessing as mp
+    from repro_torch.core.distributed_graph import assemble_graph_labels
+    from repro_torch.data import quantile
+    import torch
+
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    try:
+        # 10a. the tet mesh, two ranks ------------------------------------
+        t0 = time.perf_counter()
+        n = g["tet_mask"].size
+        for k in ("tet_send", "tet_recv", "tet_mask"):
+            np.save(os.path.join(tmp, f"{k}.npy"), g[k])
+        for k, v in g["tet_pure"].items():
+            np.save(os.path.join(tmp, f"tet_pure_{k}.npy"), v)
+        print(f"  10a tet mesh {TET_DIMS}: {n} vertices, "
+              f"{g['tet_send'].size} directed edges over {GRAPH_PARTS} "
+              f"contiguous partitions, gloo ranks sharing the card")
+        mp.spawn(_rank_10a, args=(os.path.join(tmp, "store_10a"), tmp, n,
+                                  dev.type), nprocs=GRAPH_PARTS, join=True)
+        outs = []
+        for rank in range(GRAPH_PARTS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        owned = np.load(os.path.join(tmp, "owned_gid.npy"))
+        dec = types.SimpleNamespace(n=n, owned_gid=owned, owned_counts=[
+            o["owned"] for o in outs])
+        for name, want in g["tet_pure"].items():
+            got = assemble_graph_labels([np.load(os.path.join(
+                tmp, f"tet_{name}_{rank}.npy")) for rank in
+                range(GRAPH_PARTS)], dec).numpy()
+            n_bad = int((got != want).sum())
+            check(got.dtype == np.int32 and n_bad == 0,
+                  f"10a {name}: assembled labels == phase 8's pure graph cc "
+                  f"({n_bad} differ)")
+        check(all(o["stats"] == outs[0]["stats"] for o in outs),
+              "10a: every rank reports the same stats")
+        for key, st in outs[0]["stats"].items():
+            check(st["converged"] == 1 and st["comm_phases"] >= 1,
+                  f"10a {key} converged through the table")
+            print(f"  10a {key}: assembled labels == pure, stats {st}")
+        launches["10a"] = {k: sum(o["launches"][k] for o in outs)
+                           for k in ("manifold", "cc")}
+        check(launches["10a"] == {"manifold": 0, "cc": 0},
+              "10a: the graph path launches no kernel")
+        for rank, o in enumerate(outs):
+            print(f"  10a rank {rank}: GraphDecomp {o['decomp_s']:.3f} s on "
+                  f"the host ({o['owned']} owned vertices, e_max "
+                  f"{o['e_max']}, c_max {o['c_max']}, {o['n_cut']} cut "
+                  f"vertices in all), peak host memory "
+                  f"{o['decomp_host_peak_GB']:.3f} GB after it and "
+                  f"{o['host_peak_GB']:.3f} GB at the end, peak device "
+                  f"memory {o.get('device_peak_GB')} GB; top-10% cc warm "
+                  f"{ {m: round(v, 3) for m, v in o['ms'].items()} } ms "
+                  f"(median of 3, CUDA events; two processes time-share "
+                  f"one card, gloo stages every exchange through the host) "
+                  f"({smi})")
+        phase("distributed graph 10a: tet mesh, two ranks, gloo", t0)
+
+        # 10b. random_1m, eight ranks ------------------------------------
+        t0 = time.perf_counter()
+        # on the card, as phase 8 made its masks
+        field = torch.from_numpy(g["rand_field"]).to(dev)
+        masks = np.stack([np.ones(field.numel(), bool) if qq is None
+                          else (field > quantile(field, qq)).cpu().numpy()
+                          for qq in RANDOM_BATCH_QS])
+        del field
+        n = masks.shape[1]
+        np.save(os.path.join(tmp, "rand_send.npy"), g["rand_send"])
+        np.save(os.path.join(tmp, "rand_recv.npy"), g["rand_recv"])
+        np.save(os.path.join(tmp, "rand_masks.npy"), masks)
+        mp.spawn(_rank_10b, args=(os.path.join(tmp, "store_10b"), tmp, n,
+                                  dev.type), nprocs=RANDOM_PARTS, join=True)
+        outs = []
+        for rank in range(RANDOM_PARTS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        check(outs[0]["d_max"] == RANDOM_PARTS - 1,
+              f"10b: every partition is adjacent to every other (d_max "
+              f"{outs[0]['d_max']}, {outs[0]['rounds']} permute rounds)")
+        check(all(o["stats"] == outs[0]["stats"] for o in outs),
+              "10b: every rank reports the same stats")
+        owned = np.load(os.path.join(tmp, "rand_owned_gid.npy"))
+        counts = [int((row < n).sum()) for row in owned]
+        dec = types.SimpleNamespace(n=n, owned_gid=owned,
+                                    owned_counts=counts)
+        for mode in MODES:
+            got = assemble_graph_labels([np.load(os.path.join(
+                tmp, f"rand_{mode}_{rank}.npy")) for rank in
+                range(RANDOM_PARTS)], dec).numpy()
+            for b, key in enumerate(("ones", "top10")):
+                n_bad = int((got[b] != g["rand_pure"][key]).sum())
+                check(n_bad == 0, f"10b {mode} batch item {b} ({key}) == "
+                      f"phase 8's pure graph cc ({n_bad} differ)")
+            print(f"  10b {mode}: batch of {len(RANDOM_BATCH_QS)} masks == "
+                  f"its single calls on every rank, items 0-1 == phase 8's "
+                  f"pure labels; stats {outs[0]['stats'][mode]}")
+        launches["10b"] = {k: sum(o["launches"][k] for o in outs)
+                           for k in ("manifold", "cc")}
+        check(launches["10b"] == {"manifold": 0, "cc": 0},
+              "10b: the graph path launches no kernel")
+        print(f"  10b random_1m over {RANDOM_PARTS} partitions: d_max "
+              f"{outs[0]['d_max']}, {outs[0]['rounds']} permute rounds a "
+              f"sharded exchange; GraphDecomp "
+              f"{max(o['decomp_s'] for o in outs):.3f} s (slowest rank)")
+        phase("distributed graph 10b: random_1m, eight ranks, gloo", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def distributed_path(smi, host, conn, q, dev):
     """Phase 9: the distributed grid backend (`repro_torch.core.distributed`)
     on the card (`dev`; with a CPU device, 9a runs over gloo and nothing is
@@ -1130,7 +1567,7 @@ def distributed_path(smi, host, conn, q, dev):
         try:
             mesh = make_dpc_mesh((1, 1, 1), device=dev)
             _zero_fused_launches()
-            peak, kernel_rounds = {}, {}
+            peak, kernel_rounds, direct = {}, {}, {}
             for mode in ("replicated", "sharded"):
                 for query, want in (("desc", "descending"),
                                     ("asc", "ascending"), ("cc", "labels")):
@@ -1150,6 +1587,7 @@ def distributed_path(smi, host, conn, q, dev):
                           f"{stats.as_dict()}, peak device memory "
                           f"{peak.get(f'{query} {mode}')} GB ({smi})")
                     kernel_rounds[mode, query] = int(stats.kernel_rounds)
+                    direct[query, mode] = stats.as_dict()
                     del got
             launches["9a"] = _fused_launches()
             print(f"  9a fused kernel launches (1 rank, {mesh.backend}, "
@@ -1173,6 +1611,10 @@ def distributed_path(smi, host, conn, q, dev):
                       f"{tuple(n + 2 for n in shape)} extended block == "
                       f"plain (pointers and rounds; max err, rounds): "
                       f"{fused['9a']}")
+                torch.cuda.empty_cache()
+            launches["9a facade"], fused["9a facade"] = _facade_9a(
+                smi, host, block, mesh, shape, conn, direct, dev)
+            if on_card:
                 torch.cuda.empty_cache()
             for mode in ("replicated", "sharded") if on_card else ():
                 ms_ms = event_ms(lambda: [_dist_query(
@@ -1202,6 +1644,7 @@ def distributed_path(smi, host, conn, q, dev):
         field = perlin_noise(shape_b, frequency=0.1, seed=SEED, device=dev)
         order = compute_order(field)
         mask = field > quantile(field, q)
+        mask2 = field > quantile(field, DIST_B_BATCH_Q)
         del field
         pure = ms_segmentation(order, conn)
         want = {"desc": pure.descending.cpu().numpy(),
@@ -1215,9 +1658,11 @@ def distributed_path(smi, host, conn, q, dev):
                     order[sl].cpu().numpy())
             np.save(os.path.join(tmp, f"mask{rank}.npy"),
                     mask[sl].cpu().numpy())
+            np.save(os.path.join(tmp, f"mask2_{rank}.npy"),
+                    mask2[sl].cpu().numpy())
         print(f"  9b grid {shape_b}: {int(mask.sum())} masked voxels; pure "
               f"path on the card before spawning")
-        del order, mask
+        del order, mask, mask2
         if on_card:
             torch.cuda.empty_cache()
         mp.spawn(_rank_9b, args=(os.path.join(tmp, "store_9b"), tmp,
@@ -1244,6 +1689,17 @@ def distributed_path(smi, host, conn, q, dev):
         check(not on_card or launches["9b"] == {"manifold": 8, "cc": 4},
               "9b: every distributed call launched the fused kernel once a "
               "rank")
+        launches["9b batch"] = {k: sum(o["batch_launches"][k] for o in outs)
+                                for k in ("manifold", "cc")}
+        check(not on_card or launches["9b batch"] == {"manifold": 0,
+                                                      "cc": 4},
+              "9b batch: the fused kernel launched once a mask a rank")
+        check(outs[0]["batch_stats"] == outs[1]["batch_stats"],
+              "9b batch: both ranks report the same stats")
+        print(f"  9b batched cc, B = 2 (top 10% and top 20%): items == "
+              f"their single calls on both ranks; collectives of the batch "
+              f"{outs[0]['batch_counts']} == of one single call "
+              f"{outs[0]['single_counts']}; stats {outs[0]['batch_stats']}")
         if on_card:
             fused["9b"] = {kind: (max(o["fused"][kind][0] for o in outs),
                                   max(o["fused"][kind][1] for o in outs))
@@ -1564,22 +2020,27 @@ def main():
     # phase 9 holds the distributed path to these pure results: kept on the
     # host, so that phase 8's device memory is what it was without them
     host = {"order": order.cpu(), "mask": mask.cpu(),
+            "segmentation": ms.segmentation.cpu(),
             "descending": ms.descending.cpu(),
             "ascending": ms.ascending.cpu(), "labels": cc.labels.cpu(),
             "ms_query_ms": numbers["ms_query_ms"],
             "cc_query_ms": numbers["cc_query_ms"]}
     del order, mask, ms, cc, inputs, f, desc, asc
-    graph_path(smi, dev)
+    dist_graph_in = graph_path(smi, dev)[1]
 
     # 9. the distributed grid backend ---------------------------------------
     dist_launches, dist_fused = distributed_path(smi, host, conn, q, dev)
     del host
+
+    # 10. the distributed graph backend -------------------------------------
+    dist_launches.update(distributed_graph_path(smi, dist_graph_in, dev))
+    del dist_graph_in
     for row in kernels[:2]:
         mode = row["name"].split("/")[1]
         row["launches_distributed"] = {k: v[mode]
                                        for k, v in dist_launches.items()}
         row["max_abs_err"] = max([row["max_abs_err"]] + [
-            v[mode][0] for v in dist_fused.values()])
+            v[mode][0] for v in dist_fused.values() if mode in v])
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,7 @@ package).  Two mesh families:
   * random_* — random sparse graphs (`data.graphs.random_csr`), the
     adversarial partition-adjacency case.
 
-The vertex partition of the distributed runs (a later slice of the port)
+The vertex partition of the distributed runs (`core.distributed_graph`)
 is 1-D: contiguous global-id blocks over the flattened device mesh, padded
 where the vertex count does not divide (deviation (p) in DESIGN.md).
 """

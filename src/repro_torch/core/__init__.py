@@ -1,10 +1,10 @@
 """Core library of the port: order field, steepest init, path compression,
 Morse-Smale segmentation and connected components on structured grids and
 edge-list graphs, the boundary-table machinery and run statistics of the
-distributed backends, the distributed grid backend over torch.distributed
-(`core.distributed`), and the label-propagation baseline.  The distributed
-graph backend comes in a later slice of the port; JAX's deprecated query
-shims are not ported (`topology.submit` is the entry point)."""
+distributed backends, the distributed grid and graph backends over
+torch.distributed (`core.distributed`, `core.distributed_graph`) with their
+batched entry points, and the label-propagation baseline.  JAX's deprecated
+query shims are not ported (`topology.submit` is the entry point)."""
 from .ids import compute_order, inverse_permutation, flat_ids, compact_labels
 from .pathcompress import (path_compress, path_compress_unrolled, jump,
                            is_converged)
@@ -20,7 +20,13 @@ from .baseline_cc import label_propagation_grid, extract_masked_edges
 from .stats import DPCStats, GraphDPCStats, STAT_FIELDS, stats_as_dict
 from .distributed import (BlockDecomp, DPCMesh, make_dpc_mesh,
                           distributed_manifold,
-                          distributed_connected_components)
+                          distributed_connected_components,
+                          distributed_manifold_batch,
+                          distributed_connected_components_batch)
+from .distributed_graph import (GraphDecomp,
+                                distributed_connected_components_graph,
+                                distributed_connected_components_graph_batch,
+                                assemble_graph_labels)
 
 __all__ = [
     "compute_order", "inverse_permutation", "flat_ids", "compact_labels",
@@ -34,5 +40,8 @@ __all__ = [
     "label_propagation_grid", "extract_masked_edges",
     "DPCStats", "GraphDPCStats", "STAT_FIELDS", "stats_as_dict",
     "BlockDecomp", "DPCMesh", "make_dpc_mesh", "distributed_manifold",
-    "distributed_connected_components",
+    "distributed_connected_components", "distributed_manifold_batch",
+    "distributed_connected_components_batch", "GraphDecomp",
+    "distributed_connected_components_graph",
+    "distributed_connected_components_graph_batch", "assemble_graph_labels",
 ]

@@ -11,7 +11,7 @@ one of two layouts (deviation (s) in DESIGN.md):
   * **sharded**: each device holds only its OWN slots plus a one-hop halo
     of neighbor slots (a "stack"), and the cross-shard fixpoint runs as
     outer rounds of [halo exchange -> local resolve -> global changed?]
-    (`sharded_fixpoint`).
+    (`sharded_fixpoint_batch`, one item or a batch).
 
 Two backend closures fix the layout: `lookup` (a label value -> its slot in
 this device's view, bundled with the slot values as a `TableView`) and
@@ -140,32 +140,67 @@ def value_substitute(o, chased, sorted_vals, g_sorted):
     return torch.where(o < 0, -1, improved)
 
 
-def sharded_fixpoint(own0, exchange, refine, reduce_any, max_rounds: int = 64):
-    """Outer halo-exchange loop of the sharded table mode (deviation (s)).
+def sharded_fixpoint_batch(own0, exchange, refine, reduce_any,
+                           max_rounds: int = 64):
+    """Outer halo-exchange loop of the sharded table mode (deviation (s))
+    for a batch of B items: JAX's `lax.while_loop` under `vmap`.
 
-    `own0` is the device's owned slot chunk (last axis = slots).
-    `exchange(own) -> stack` rebuilds the own+halo view from fresh owned
-    values (the own chunk MUST land at `stack[..., :n_own]`);
-    `refine(stack) -> (stack', iters, ok)` resolves the view locally;
-    `reduce_any(flag)` reduces a 0-d bool tensor "changed" across the
-    devices (an all_reduce MAX; the identity on one device).  Rounds repeat
-    until no device's owned chunk changes; the fixpoint, and hence the final
-    labels, equal the replicated mode's (DESIGN.md §Table-sharding).
+    `own0` is the (B, n_own) stack of the device's owned slot chunks.
+    `exchange(own) -> stacks` rebuilds the (b, stack) own+halo views of b
+    items from their fresh (b, n_own) owned values (the own chunk MUST land
+    at `stack[:n_own]`); `refine(stack, item) -> (stack', iters, ok)`
+    resolves one item's view locally; `reduce_any(flags)` ORs a (b,) bool
+    tensor of "changed" flags across the devices (one all_reduce MAX; the
+    identity on one device).  A round refines, reduces and exchanges the
+    items still running, each collective once for all of them; an item
+    stops when no device's owned chunk changed, at its own fixpoint and with
+    its own counts, as the batched while_loop freezes it by its select.
+    The fixpoint, and hence the final labels, equal the replicated mode's
+    (DESIGN.md §Table-sharding).
 
-    Returns (stack, own, exchange_rounds, total inner iters, converged).
-    The stack holds the converged owned chunk plus a FRESH halo (the
-    trailing exchange is counted in `exchange_rounds`).
+    Returns (stacks, owns, exchange_rounds, total inner iters, converged),
+    the last three per-item lists.  Each stack holds the converged owned
+    chunk plus a FRESH halo (the trailing exchange is counted in
+    `exchange_rounds`).
     """
-    n_own = own0.shape[-1]
-    stack, own = exchange(own0), own0
-    changed, rounds, iters, ok = True, 1, 0, True
-    while changed and rounds < max_rounds:
-        stack2, inner, ok2 = refine(stack)
-        new_own = stack2[..., :n_own]
-        changed = bool(reduce_any((new_own != own).any()))
-        stack, own = exchange(new_own), new_own
-        rounds, iters, ok = rounds + 1, iters + int(inner), ok and bool(ok2)
-    return stack, own, rounds, iters, ok and not changed
+    B, n_own = own0.shape
+    stack, own = exchange(own0), own0.clone()
+    rounds, iters = [1] * B, [0] * B
+    ok, changed = [True] * B, [True] * B
+    while True:
+        run = [b for b in range(B) if changed[b] and rounds[b] < max_rounds]
+        if not run:
+            break
+        new_own, flags = [], []
+        for b in run:
+            stack2, inner, ok2 = refine(stack[b], b)
+            new_own.append(stack2[:n_own])
+            flags.append(bool((new_own[-1] != own[b]).any()))
+            iters[b] += int(inner)
+            ok[b] = ok[b] and bool(ok2)
+        ch = reduce_any(torch.tensor(flags))
+        new_own = torch.stack(new_own)
+        idx = torch.tensor(run, device=stack.device)
+        stack[idx] = exchange(new_own)
+        own[idx] = new_own
+        for j, b in enumerate(run):
+            changed[b] = bool(ch[j])
+            rounds[b] += 1
+    return stack, own, rounds, iters, [o and not c
+                                       for o, c in zip(ok, changed)]
+
+
+def sharded_fixpoint(own0, exchange, refine, reduce_any, max_rounds: int = 64):
+    """`sharded_fixpoint_batch` for one item: `own0` is the (n_own,) owned
+    chunk, `exchange(own) -> stack`, `refine(stack) -> (stack', iters, ok)`
+    and `reduce_any(flag)` on a 0-d flag.  Returns (stack, own,
+    exchange_rounds, total inner iters, converged)."""
+    stack, own, rounds, iters, ok = sharded_fixpoint_batch(
+        own0[None], lambda o: exchange(o[0])[None],
+        lambda st, _: refine(st),
+        lambda flags: torch.as_tensor(reduce_any(flags[0])).reshape(1),
+        max_rounds)
+    return stack[0], own[0], rounds[0], iters[0], ok[0]
 
 
 def check_converged(flag, what: str, max_iter: int) -> None:

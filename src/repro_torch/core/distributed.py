@@ -35,8 +35,9 @@ Phases (MS manifolds):
 Connected components add the local stitch (Alg. 3) and, on the table, the
 hook+propagate fixpoint of deviation (d2).
 
-The three collectives all go through `DPCMesh`: an axis shift (for
-`lax.ppermute`), an all-gather and an all-reduce.  NCCL takes device
+The collectives all go through `DPCMesh`: an axis shift and a general
+permute (for `lax.ppermute`; the graph backend's exchange schedule uses the
+latter), an all-gather and an all-reduce.  NCCL takes device
 tensors.  Gloo is a host transport: with a gloo group and tensors on a
 device the mesh copies them to the host and back explicitly, so times taken
 over gloo include those copies.  The backend is the caller's choice.
@@ -45,8 +46,16 @@ Every rank issues the same collectives in the same order, an empty block
 
 Each of JAX's `lax.while_loop`s is a Python loop (`core/_table.py`), with
 the same round counts; stats come back as 0-d CPU tensors in JAX's dtypes
-(int32, float32).  The `_batch` entry points of the reference are not
-ported yet.
+(int32, float32).
+
+The `_batch` entry points take a (B, *block) stack of one extent and give
+(B, *block) labels and `DPCStats` whose fields have a leading (B,) dim, each
+item equal to its single call.  A single call is the batch of one.  As under
+JAX's `vmap`, each collective fires once for the whole stack: the halo
+shifts, the table's all-gather, each exchange round of the sharded table
+(for the items that have not reached their fixpoint) and the stats'
+reduction.  The fused kernel, the local compression and the table's chase
+run item by item, so each item keeps its own round counts.
 """
 from __future__ import annotations
 
@@ -59,7 +68,7 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ._table import (TableView, chase_view, check_converged, check_table_mode,
-                     make_group_max, hook_propagate, sharded_fixpoint,
+                     make_group_max, hook_propagate, sharded_fixpoint_batch,
                      value_substitute)
 from .pathcompress import path_compress
 from .stats import DPCStats
@@ -78,8 +87,8 @@ class DPCMesh:
     Rank r of `group` owns the block at ``np.unravel_index(r, layout)``
     (row-major in mesh-axis order).  `coords[a]` is the rank's coordinate
     along mesh axis a (JAX's `lax.axis_index`).  `device` is where the
-    entry points run; the three collectives below are the only
-    communication of the backend.
+    entry points run; the collectives below are the only communication of
+    the distributed backends.
     """
 
     def __init__(self, layout, names, group, device):
@@ -101,12 +110,15 @@ class DPCMesh:
         # gloo moves host memory: device tensors are staged through it
         self.staged = self.backend == "gloo" and device.type != "cpu"
 
+    def _global(self, r: int) -> int:
+        """Global rank of rank r of the group."""
+        return r if self.group is None else dist.get_global_rank(self.group, r)
+
     def peer(self, a: int, coord: int) -> int:
         """Global rank of the block one step along axis a at `coord`."""
         c = list(self.coords)
         c[a] = coord
-        r = int(np.ravel_multi_index(c, self.layout))
-        return r if self.group is None else dist.get_global_rank(self.group, r)
+        return self._global(int(np.ravel_multi_index(c, self.layout)))
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """`t` as it travels: contiguous, bool as uint8, on the host under
@@ -148,6 +160,37 @@ class DPCMesh:
         for recv, buf in recvs:
             recv.copy_(self._unwire(buf, recv))
         return from_prev, from_next
+
+    def permute(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """JAX's `lax.ppermute`: `pairs` is a partial permutation of
+        (source, destination) group ranks; this rank sends `x` to its
+        destination and returns what its source sent, zeros when it has no
+        source.  One `batch_isend_irecv`; a rank in no pair issues
+        nothing."""
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        if len({s for s, _ in pairs}) < len(pairs) \
+                or len({d for _, d in pairs}) < len(pairs):
+            raise ValueError(f"permute pairs {pairs} repeat a source or a "
+                             f"destination")
+        out = torch.zeros_like(x)
+        ops, buf = [], None
+        for src, dst in pairs:
+            if src == dst == self.rank:
+                out.copy_(x)
+                continue
+            if src == self.rank:
+                ops.append(dist.P2POp(dist.isend, self._wire(x),
+                                      self._global(dst), self.group))
+            if dst == self.rank:
+                buf = torch.empty_like(self._wire(out))
+                ops.append(dist.P2POp(dist.irecv, buf, self._global(src),
+                                      self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if buf is not None:
+            out.copy_(self._unwire(buf, out))
+        return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(ranks, *x.shape): every rank's `x`, in rank order (JAX's
@@ -382,18 +425,23 @@ def _decomp_for(mesh: DPCMesh, grid_shape) -> BlockDecomp:
 
 
 def _pad_block(x, dec: BlockDecomp, mesh: DPCMesh, fill):
-    """The rank's block on the mesh's device, padded up to `dec.local` with
-    the phase's inert sentinel (order -1 / mask False)."""
+    """The rank's (B, *block) stack on the mesh's device, each block padded
+    up to `dec.local` with the phase's inert sentinel (order -1 / mask
+    False)."""
     want = tuple(s.stop - s.start for s in dec.block_slices(mesh.coords))
-    if tuple(x.shape) != want:
+    if tuple(x.shape[1:]) != want:
         raise ValueError(f"rank {mesh.rank} owns the block "
                          f"{dec.block_slices(mesh.coords)} of the grid "
-                         f"{dec.grid}, of shape {want}; got {tuple(x.shape)}")
+                         f"{dec.grid}, of shape {want}; got "
+                         f"{tuple(x.shape[1:])}")
+    if x.shape[0] == 0:
+        raise ValueError("a batch needs at least one item")
     x = x.to(mesh.device)
     if want == dec.local:
         return x.contiguous()
-    out = torch.full(dec.local, fill, dtype=x.dtype, device=mesh.device)
-    out[tuple(slice(0, n) for n in want)] = x
+    out = torch.full((x.shape[0],) + dec.local, fill, dtype=x.dtype,
+                     device=mesh.device)
+    out[(slice(None),) + tuple(slice(0, n) for n in want)] = x
     return out
 
 
@@ -410,19 +458,23 @@ def _owned_valid(dec: BlockDecomp, mesh: DPCMesh):
     return total.expand(dec.local)
 
 
-def _halo_extend(ext, dim, mesh: DPCMesh, fill):
-    """Extend `ext` with one ghost slab per face along grid axis `dim`,
-    exchanged over mesh axis `dim` (fill at the domain boundary).  Applied
-    axis by axis, so later axes forward earlier ghosts into the corners."""
-    lo, hi = mesh.shift(dim, to_next=ext.narrow(dim, ext.shape[dim] - 1, 1),
-                        to_prev=ext.narrow(dim, 0, 1), fill=fill)
-    return torch.cat([lo, ext, hi], dim=dim)
+def _halo_extend(ext, a, mesh: DPCMesh, fill):
+    """Extend the (B, *block) stack `ext` with one ghost slab per face along
+    grid axis `a`, exchanged over mesh axis `a` (fill at the domain
+    boundary).  Applied axis by axis, so later axes forward earlier ghosts
+    into the corners."""
+    d = a + 1
+    lo, hi = mesh.shift(a, to_next=ext.narrow(d, ext.shape[d] - 1, 1),
+                        to_prev=ext.narrow(d, 0, 1), fill=fill)
+    return torch.cat([lo, ext, hi], dim=d)
 
 
-def _extend(block, dec: BlockDecomp, mesh: DPCMesh, fill):
+def _extend(blocks, dec: BlockDecomp, mesh: DPCMesh, fill):
+    """The (B, *ext) extended blocks: one shift pair a mesh axis for the
+    whole stack."""
     for a in range(dec.k):
-        block = _halo_extend(block, a, mesh, fill)
-    return block
+        blocks = _halo_extend(blocks, a, mesh, fill)
+    return blocks
 
 
 def _gid_of(local, dec: BlockDecomp, mesh: DPCMesh):
@@ -438,6 +490,18 @@ def _gid_of(local, dec: BlockDecomp, mesh: DPCMesh):
             x = x + (mesh.coords[i] * dec.local[i] - 1)
         g = g + x * dec.stride[i]
     return torch.where(local >= 0, g, -1)
+
+
+def _look_up(values, g, slot_of):
+    """`g` taken through a table view: the entry of `values` at g's slot
+    where `slot_of(g) -> (has a slot, slot)` gives one, else g itself; -1
+    stays -1.  The table chase, the sharded view's lookup and the final
+    substitution (Alg. 2 lines 27-33) are all this step."""
+    ok, idx = slot_of(g.clamp(min=0))
+    return torch.where((g >= 0) & ok,
+                       values.index_select(0, idx.clamp(0,
+                                                        values.numel() - 1)),
+                       g)
 
 
 def _through_roots(d, dec: BlockDecomp, mesh: DPCMesh, substitute):
@@ -469,29 +533,31 @@ def _own_faces(owned, dec: BlockDecomp):
     return torch.cat(parts)
 
 
+def _faces(ds, dec: BlockDecomp, mesh: DPCMesh):
+    """(B, rows) own faces of each item's local pointers, in global ids."""
+    return torch.stack([_gid_of(_own_faces(d.reshape(dec.ext)[
+        dec.owned_slices], dec), dec, mesh) for d in ds])
+
+
 def _gather_table(faces, dec: BlockDecomp, mesh: DPCMesh):
-    """The single communication phase: one all-gather of every rank's own
-    faces (`_own_faces`), laid out as `BlockDecomp.boundary_pos` expects
-    (per axis, every block's lo and hi face)."""
-    rows = mesh.all_gather(faces)                      # (nblocks, rows)
+    """The single communication phase: one all-gather of every rank's
+    (B, rows) own faces (`_own_faces`), giving each item's table laid out
+    as `BlockDecomp.boundary_pos` expects (per axis, every block's lo and
+    hi face): (B, table_size)."""
+    rows = mesh.all_gather(faces)                   # (nblocks, B, rows)
     parts = []
     for a in range(dec.k):
         lo = dec.face_offset[a] // dec.nblocks
-        parts.append(rows[:, lo:lo + 2 * dec.face_size[a]].reshape(-1))
-    return torch.cat(parts)
+        parts.append(rows[:, :, lo:lo + 2 * dec.face_size[a]].transpose(
+            0, 1).reshape(faces.shape[0], -1))
+    return torch.cat(parts, dim=1)
 
 
 def _table_compress(T, dec: BlockDecomp, max_iter=64):
     """Pointer doubling on the gathered table (Alg. 2 lines 15-25); entries
     < 0 and non-boundary targets are fixed.  Returns (table, iters, ok)."""
-    last = T.numel() - 1
-
-    def lookup(t):
-        is_b, pos = dec.boundary_pos(t.clamp(min=0))
-        tv = t.index_select(0, pos.clamp(0, last))
-        return torch.where((t >= 0) & is_b, tv, t)
-
-    view, iters, ok = chase_view(TableView(T, lookup, T.numel()), max_iter)
+    view, iters, ok = chase_view(TableView(
+        T, lambda t: _look_up(t, t, dec.boundary_pos), T.numel()), max_iter)
     return view.values, iters, ok
 
 
@@ -568,10 +634,11 @@ class _ShardGeom:
         self.stack_size = self.n_chunks * self.rows
 
     def exchange_fn(self, fill):
-        """One halo-exchange round: own chunk -> flat (stack_size,) stack
-        with the own chunk leading.  The Moore variant forwards the partial
-        stack axis by axis, so diagonal chunks arrive by two hops; its chunk
-        order is the reference's (`jnp.stack` along a growing axis)."""
+        """One halo-exchange round: (B, rows) own chunks -> (B, stack_size)
+        stacks with the own chunk leading, one shift pair a mesh axis for
+        the whole batch.  The Moore variant forwards the partial stack axis
+        by axis, so diagonal chunks arrive by two hops; its chunk order is
+        the reference's (`jnp.stack` along a growing axis)."""
         mesh = self.mesh
 
         def axis_parts(src, a):
@@ -585,14 +652,14 @@ class _ShardGeom:
             def exchange(own):
                 S = own
                 for dims, a in enumerate(self.act):
-                    S = torch.stack([S] + axis_parts(S, a), dim=dims)
-                return S.reshape(-1)
+                    S = torch.stack([S] + axis_parts(S, a), dim=dims + 1)
+                return S.reshape(own.shape[0], -1)
         else:
             def exchange(own):
                 chunks = [own]
                 for a in self.act:
                     chunks.extend(axis_parts(own, a))
-                return torch.cat(chunks) if len(chunks) > 1 else own
+                return torch.cat(chunks, dim=1)
         return exchange
 
     def pos_to_stack(self, s):
@@ -638,17 +705,6 @@ class _ShardGeom:
         is_b, s = self.dec.boundary_pos(g)
         ok, idx = self.pos_to_stack(s)
         return is_b & ok, idx
-
-    def lookup_fn(self):
-        """Value lookup through the stack (the sharded TableView lookup):
-        in-stack boundary targets map through, everything else is fixed."""
-        last = self.stack_size - 1
-
-        def lookup(t):
-            ok, idx = self.slot_of(t.clamp(min=0))
-            tv = t.index_select(0, idx.clamp(0, last))
-            return torch.where((t >= 0) & ok, tv, t)
-        return lookup
 
     def _chunk_block_coords(self, ci: int):
         """Per-axis block coordinates of chunk `ci` on this rank."""
@@ -699,25 +755,33 @@ class _ShardGeom:
         return torch.cat(parts), torch.cat(valids)
 
 
-def _preduce_stats(mesh: DPCMesh, iters, rounds, ok):
-    """Mesh-wide reductions of the per-rank sharded fixpoint stats:
-    (pmax iters, rounds, pmin ok)."""
-    top, not_ok = mesh.pmax(iters, 1 - int(ok))
-    return top, rounds, 1 - not_ok
-
-
 def _reduce_any_fn(mesh: DPCMesh):
-    def reduce_any(x):
-        return mesh.pmax(bool(x))[0] > 0
+    """Each item's "changed" flag OR-ed over the ranks, one all-reduce for
+    the batch."""
+    def reduce_any(flags):
+        return [v > 0 for v in mesh.pmax(*(bool(f) for f in flags))]
     return reduce_any
 
 
+def _pmax_lists(mesh: DPCMesh, *lists):
+    """Lists of per-item ints, each element reduced by max over the ranks,
+    all in one all-reduce."""
+    flat = mesh.pmax(*(v for values in lists for v in values))
+    B = len(lists[0])
+    return [flat[i * B:(i + 1) * B] for i in range(len(lists))]
+
+
 def _i32(v):
-    return torch.tensor(int(v), dtype=torch.int32)
+    return torch.tensor(v, dtype=torch.int32)
 
 
 def _f32(v):
     return torch.tensor(v, dtype=torch.float32)
+
+
+def _item(stats):
+    """Item 0 of batched stats: 0-d fields, a single call's stats."""
+    return type(stats)(*(v[0] for v in stats))
 
 
 # --- MS manifolds ------------------------------------------------------------
@@ -726,57 +790,60 @@ def _f32(v):
 def _sharded_manifold_resolve(T0, dec: BlockDecomp, mesh: DPCMesh,
                               connectivity, max_iter: int):
     """Sharded replacement of steps 4-6 for manifolds: a neighbour-relay
-    fixpoint on the own+halo stack, from the own faces `T0`.  Each outer
-    round rebuilds the view from fresh estimates and re-chases every own
-    slot from its original one-hop pointer; it converges to the chains'
-    terminals, the values the replicated chase gives (DESIGN.md
-    §Table-sharding).  Returns the substitution (global label -> final
-    label) with the geometry and the fixpoint's counts."""
+    fixpoint on the own+halo stack, from the (B, rows) own faces `T0`.
+    Each outer round rebuilds the view from fresh estimates and re-chases
+    every own slot from its original one-hop pointer; it converges to the
+    chains' terminals, the values the replicated chase gives (DESIGN.md
+    §Table-sharding).  Returns each item's substitution (global label ->
+    final label) with the geometry and the fixpoint's per-item counts."""
     geom = _ShardGeom(dec, mesh, connectivity)
-    lookup = geom.lookup_fn()
 
-    def refine(stack):
+    def lookup(t):
+        return _look_up(t, t, geom.slot_of)
+
+    def refine(stack, b):
         stack = stack.clone()
-        stack[:geom.rows] = T0
+        stack[:geom.rows] = T0[b]
         view, iters, ok = chase_view(TableView(stack, lookup, geom.rows),
                                      max_iter)
         return view.values, iters, ok
 
-    stackT, _, rounds, iters, ok = sharded_fixpoint(
+    stacks, _, rounds, iters, ok = sharded_fixpoint_batch(
         T0, geom.exchange_fn(-1), refine, _reduce_any_fn(mesh),
         max_rounds=max_iter)
-    last = geom.stack_size - 1
-
-    def substitute(o):
-        okp, idx = geom.slot_of(o.clamp(min=0))
-        return torch.where((o >= 0) & okp,
-                           stackT.index_select(0, idx.clamp(0, last)), o)
-    return substitute, geom, rounds, iters, ok
+    subs = [lambda o, s=s: _look_up(s, o, geom.slot_of) for s in stacks]
+    return subs, geom, rounds, iters, ok
 
 
-def _manifold_block(order_blk, dec: BlockDecomp, mesh: DPCMesh, connectivity,
+def _manifold_block(orders, dec: BlockDecomp, mesh: DPCMesh, connectivity,
                     fused_impl: str, table_mode: str, table_max_iter: int):
-    """Always the descending direction; the ascending manifold flips the
-    order field first (keeps the -1 halo fill below every candidate)."""
+    """(B, *local) padded order blocks -> ((B, *local) labels, DPCStats with
+    (B,) fields).  Always the descending direction; the ascending manifold
+    flips the order field first (keeps the -1 halo fill below every
+    candidate)."""
     from ..kernels import ops   # lazy: the kernels import core.steepest
+    B = orders.shape[0]
 
     # 1. order halo (fill -1: below every real order value, never steepest)
-    ext = _extend(order_blk, dec, mesh, -1)
+    ext = _extend(orders, dec, mesh, -1)
 
     # 2.+3a. fused steepest init + in-slab saturation in local ids, ghosts
-    #    pretending to be maxima (Alg. 1 lines 6-8)
-    d, kernel_rounds = ops.fused_local_phase(
-        ext, connectivity, mode="manifold",
-        self_mask=dec.on_device("ghost", mesh.device), impl=fused_impl)
-    del ext
-
-    # 3. local compression to the block fixpoint
-    d, local_iters = path_compress(d.reshape(-1))
+    #    pretending to be maxima (Alg. 1 lines 6-8); 3. local compression
+    #    to the block fixpoint; item by item
+    ghost = dec.on_device("ghost", mesh.device)
+    ds, kernel_rounds, local_iters = [], [], []
+    for x in ext:
+        d, r = ops.fused_local_phase(x, connectivity, mode="manifold",
+                                     self_mask=ghost, impl=fused_impl)
+        d, it = path_compress(d.reshape(-1))
+        ds.append(d)
+        kernel_rounds.append(r)
+        local_iters.append(it)
+    del ext, x, d
 
     # 4. the own faces in global ids; pad cells of a ragged block carry the
     #    sentinel -1
-    faces = _gid_of(_own_faces(d.reshape(dec.ext)[dec.owned_slices], dec),
-                    dec, mesh)
+    faces = _faces(ds, dec, mesh)
     if dec.ragged:
         faces = torch.where(_own_faces(_owned_valid(dec, mesh), dec), faces,
                             -1)
@@ -784,56 +851,72 @@ def _manifold_block(order_blk, dec: BlockDecomp, mesh: DPCMesh, connectivity,
 
     if table_mode == "replicated":
         # 4. the single communication phase + 5. table compression
-        T = _gather_table(faces, dec, mesh)
-        T, table_iters, chase_ok = _table_compress(T, dec, table_max_iter)
-        last = T.numel() - 1
-
-        def substitute(o):   # Alg. 2 lines 27-33
-            is_b, pos = dec.boundary_pos(o.clamp(min=0))
-            return torch.where((o >= 0) & is_b,
-                               T.index_select(0, pos.clamp(0, last)), o)
-        comm, exch_rounds = 1, 0
-        ghost_bytes = _f32(dec.n_valid_slots * isz)
-        table_bytes = _f32(dec.table_size * isz)
-        converged = int(chase_ok)
+        subs, table_iters, not_ok = [], [], []
+        for T in _gather_table(faces, dec, mesh):
+            T, it, ok = _table_compress(T, dec, table_max_iter)
+            # Alg. 2 lines 27-33
+            subs.append(lambda o, T=T: _look_up(T, o, dec.boundary_pos))
+            table_iters.append(it)
+            not_ok.append(int(not ok))
+        exch_rounds = [0] * B
+        comm = [1] * B
+        ghost_bytes = _f32(dec.n_valid_slots * isz).repeat(B)
+        table_bytes = _f32(dec.table_size * isz).repeat(B)
     else:
-        substitute, geom, exch_rounds, iters, ok = \
+        subs, geom, exch_rounds, table_iters, ok = \
             _sharded_manifold_resolve(faces, dec, mesh, connectivity,
                                       table_max_iter)
-        table_iters, _, converged = _preduce_stats(mesh, iters, exch_rounds,
-                                                   ok)
+        not_ok = [int(not o) for o in ok]
         comm = exch_rounds                 # one exchange phase per round
         halo = geom.stack_size - geom.rows
         ghost_bytes = _f32(halo * isz) * _f32(exch_rounds)
-        table_bytes = _f32((geom.stack_size + geom.rows) * isz)
+        table_bytes = _f32((geom.stack_size + geom.rows) * isz).repeat(B)
 
     # 6. final substitution
-    final = _through_roots(d, dec, mesh, substitute)
+    finals = [_through_roots(d, dec, mesh, sub) for d, sub in zip(ds, subs)]
+    final = torch.stack(finals)
     if dec.ragged:
         final = torch.where(_owned_valid(dec, mesh).reshape(-1), final, -1)
 
-    li, kr = mesh.pmax(local_iters, kernel_rounds)
+    # the table's counts are the same on every rank in replicated mode
+    li, kr, ti, bad = _pmax_lists(mesh, local_iters, kernel_rounds,
+                                  table_iters, not_ok)
     stats = DPCStats(
         local_iters=_i32(li),
-        table_iters=_i32(table_iters),
-        stitch_rounds=_i32(0),
+        table_iters=_i32(ti),
+        stitch_rounds=_i32([0] * B),
         ghost_bytes=ghost_bytes,
-        masked_ghost_fraction=_f32(1.0),
-        pad_fraction=_f32(dec.pad_fraction),
+        masked_ghost_fraction=_f32([1.0] * B),
+        pad_fraction=_f32(dec.pad_fraction).repeat(B),
         comm_phases=_i32(comm),
         kernel_rounds=_i32(kr),
-        global_iters_saved=_i32(max(kr - li, 0)),
+        global_iters_saved=_i32([max(k - i, 0) for k, i in zip(kr, li)]),
         table_bytes_peak=table_bytes,
         exchange_rounds=_i32(exch_rounds),
-        converged=_i32(converged),
+        converged=_i32([1 - v for v in bad]),
     )
-    return final.reshape(dec.local), stats
+    return final.reshape((B,) + dec.local), stats
 
 
 def _real(labels, dec: BlockDecomp, mesh: DPCMesh):
-    """The padded block's labels cut to the block the rank owns."""
+    """The padded (B, *local) labels cut to the block the rank owns."""
     want = dec.block_slices(mesh.coords)
-    return labels[tuple(slice(0, s.stop - s.start) for s in want)].contiguous()
+    return labels[(slice(None),) + tuple(slice(0, s.stop - s.start)
+                                         for s in want)].contiguous()
+
+
+def _manifolds(orders, mesh, grid_shape, connectivity, descending,
+               fused_impl, table_mode, table_max_iter, what):
+    check_table_mode(table_mode)
+    dec = _decomp_for(mesh, grid_shape)
+    if not descending:
+        # the GLOBAL grid's size, not the block's
+        orders = dec.size - 1 - orders
+    orders = _pad_block(orders, dec, mesh, -1)
+    labels, stats = _manifold_block(orders, dec, mesh, connectivity,
+                                    fused_impl, table_mode, table_max_iter)
+    check_converged(stats.converged, what, table_max_iter)
+    return _real(labels, dec, mesh), stats
 
 
 def distributed_manifold(order, mesh: DPCMesh, grid_shape,
@@ -853,16 +936,26 @@ def distributed_manifold(order, mesh: DPCMesh, grid_shape,
     "sharded" (own faces + one-hop halo, outer exchange rounds, deviation
     (s)); labels are bit-identical across all choices.
     """
-    check_table_mode(table_mode)
-    dec = _decomp_for(mesh, grid_shape)
-    if not descending:
-        # the GLOBAL grid's size, not the block's
-        order = dec.size - 1 - order
-    order = _pad_block(order, dec, mesh, -1)
-    labels, stats = _manifold_block(order, dec, mesh, connectivity,
-                                    fused_impl, table_mode, table_max_iter)
-    check_converged(stats.converged, "distributed_manifold", table_max_iter)
-    return _real(labels, dec, mesh), stats
+    labels, stats = _manifolds(order[None], mesh, grid_shape, connectivity,
+                               descending, fused_impl, table_mode,
+                               table_max_iter, "distributed_manifold")
+    return labels[0], _item(stats)
+
+
+def distributed_manifold_batch(orders, mesh: DPCMesh, grid_shape,
+                               connectivity: int = 6,
+                               descending: bool = True,
+                               fused_impl: str = "auto",
+                               table_mode: str = "replicated",
+                               table_max_iter: int = 64):
+    """Batched `distributed_manifold`: `orders` is a (B, *block) stack of
+    this rank's blocks of B order fields of one extent `grid_shape`;
+    returns ((B, *block) labels, DPCStats with a leading (B,) dim), each
+    item equal to its single call.  The collectives fire once for the
+    batch (module docstring)."""
+    return _manifolds(orders, mesh, grid_shape, connectivity, descending,
+                      fused_impl, table_mode, table_max_iter,
+                      "distributed_manifold_batch")
 
 
 # --- connected components ----------------------------------------------------
@@ -906,26 +999,31 @@ def _table_propagate(Tstar, Mflat, coords, dec: BlockDecomp, connectivity,
     (b) the max within equal-original-label groups.  Gives every boundary
     slot the largest label of its global component."""
     group_max, perm, sorted_vals = make_group_max(Tstar)
-
-    def slot_of(g):
-        return dec.boundary_pos(g)
-
-    cut_max = _cut_max_fn(*_cut_edges(coords, None, slot_of, Mflat, dec,
-                                      connectivity))
+    cut_max = _cut_max_fn(*_cut_edges(coords, None, dec.boundary_pos, Mflat,
+                                      dec, connectivity))
     L, iters, ok = hook_propagate(Tstar, cut_max, group_max, max_iter)
     return L, (perm, sorted_vals), iters, ok
 
 
+def _cc_substitute(values, slot_of, sorted_vals, g_sorted):
+    """CC's substitution (global label -> final label): chase the label
+    through the table view `values`, then take its group's propagated
+    maximum (value search)."""
+    return lambda o: value_substitute(o, _look_up(values, o, slot_of),
+                                      sorted_vals, g_sorted)
+
+
 def _sharded_cc_resolve(T0, M0, coords, dec: BlockDecomp, mesh: DPCMesh,
                         connectivity, gather_mask: bool, max_iter: int):
-    """Sharded replacement of CC steps 4-6 from the own faces' labels `T0`
-    and mask `M0`: a max-flooding fixpoint on the own+halo stack (masked cut
-    edges between in-stack slots + equal-original-label groups within the
-    stack), whose fixpoint is each component's max vertex id, the value the
-    replicated path computes.  The static label and mask stacks are
-    exchanged once; each outer round exchanges only the evolving estimates.
-    Returns the substitution (global label -> final label), the mask stack,
-    the geometry and the fixpoint's counts."""
+    """Sharded replacement of CC steps 4-6 from the (B, rows) own faces'
+    labels `T0` and mask `M0`: a max-flooding fixpoint on the own+halo
+    stack (masked cut edges between in-stack slots + equal-original-label
+    groups within the stack), whose fixpoint is each component's max vertex
+    id, the value the replicated path computes.  The static label and mask
+    stacks are exchanged once; each outer round exchanges only the evolving
+    estimates.  Returns each item's substitution (global label -> final
+    label), the (B, stack) mask stacks, the geometry and the fixpoint's
+    per-item counts."""
     geom = _ShardGeom(dec, mesh, connectivity)
     exchange = geom.exchange_fn(-1)
     T0s = exchange(T0)                       # static: group structure
@@ -933,56 +1031,59 @@ def _sharded_cc_resolve(T0, M0, coords, dec: BlockDecomp, mesh: DPCMesh,
         Ms = geom.exchange_fn(False)(M0)
     else:
         Ms = T0s >= 0                        # labels are -1 iff unmasked
-    group_max, perm, sorted_vals = make_group_max(T0s)
-
+    groups = [make_group_max(t) for t in T0s]
     scoords, svalid = geom.stack_coords(coords)
-    cut_max = _cut_max_fn(*_cut_edges(scoords, svalid, geom.slot_of, Ms,
-                                      dec, connectivity))
+    cut_maxes = [_cut_max_fn(*_cut_edges(scoords, svalid, geom.slot_of, m,
+                                         dec, connectivity)) for m in Ms]
 
-    def refine(stack):
-        return hook_propagate(stack, cut_max, group_max, max_iter)
+    def refine(stack, b):
+        return hook_propagate(stack, cut_maxes[b], groups[b][0], max_iter)
 
-    stackG, _, rounds, iters, ok = sharded_fixpoint(
+    stacks, _, rounds, iters, ok = sharded_fixpoint_batch(
         T0, exchange, refine, _reduce_any_fn(mesh), max_rounds=max_iter)
 
     # substitution: the flooded value at the own label's slot when it has
     # one, then the value search over the static stack labels (an interior
     # root shares its value with its piece's cut vertices)
-    last, g_sorted = geom.stack_size - 1, stackG.index_select(0, perm)
-
-    def substitute(o):
-        okp, idx = geom.slot_of(o.clamp(min=0))
-        chased = torch.where((o >= 0) & okp,
-                             stackG.index_select(0, idx.clamp(0, last)), o)
-        return value_substitute(o, chased, sorted_vals, g_sorted)
-    return substitute, Ms, geom, rounds, iters, ok
+    subs = [_cc_substitute(s, geom.slot_of, sorted_vals,
+                           s.index_select(0, perm))
+            for s, (_, perm, sorted_vals) in zip(stacks, groups)]
+    return subs, Ms, geom, rounds, iters, ok
 
 
-def _cc_block(mask_blk, dec: BlockDecomp, mesh: DPCMesh, connectivity,
+def _cc_block(masks, dec: BlockDecomp, mesh: DPCMesh, connectivity,
               gather_mask: bool, fused_impl: str, table_mode: str,
               table_max_iter: int):
-    """gather_mask=False drops the mask exchange: the boundary mask is
-    exactly (T >= 0), labels being -1 where unmasked (bit-identical)."""
+    """(B, *local) padded mask blocks -> ((B, *local) labels, DPCStats with
+    (B,) fields).  gather_mask=False drops the mask exchange: the boundary
+    mask is exactly (T >= 0), labels being -1 where unmasked
+    (bit-identical)."""
     from ..kernels import ops   # lazy: the kernels import core.steepest
+    B = masks.shape[0]
 
     # 1. mask halo (fill False: the domain boundary is never masked)
-    ext = _extend(mask_blk, dec, mesh, False)
+    ext = _extend(masks, dec, mesh, False)
 
     # 2. fused init: largest masked neighbour id, masked ghosts pretending
-    #    self, saturated in-slab by the kernel path
-    d, kernel_rounds = ops.fused_local_phase(
-        ext, connectivity, mode="cc",
-        self_mask=dec.on_device("ghost", mesh.device), impl=fused_impl)
-
-    # 3. local CC fixpoint (stitch + compress, Alg. 3)
-    d, stitch_rounds, local_iters, it0 = _cc_local_fixpoint(
-        d.reshape(-1), ext, connectivity)
+    #    self, saturated in-slab by the kernel path; 3. local CC fixpoint
+    #    (stitch + compress, Alg. 3); item by item
+    ghost = dec.on_device("ghost", mesh.device)
+    ds, kernel_rounds, stitch_rounds, local_iters, first = [], [], [], [], []
+    for x in ext:
+        d, r = ops.fused_local_phase(x, connectivity, mode="cc",
+                                     self_mask=ghost, impl=fused_impl)
+        d, sr, its, it0 = _cc_local_fixpoint(d.reshape(-1), x, connectivity)
+        ds.append(d)
+        kernel_rounds.append(r)
+        stitch_rounds.append(sr)
+        local_iters.append(its)
+        first.append(it0)
 
     # 4. the own faces: labels in global ids (-1 where unmasked) and mask
-    faces = _gid_of(_own_faces(d.reshape(dec.ext)[dec.owned_slices], dec),
-                    dec, mesh)
-    mask_faces = _own_faces(ext[dec.owned_slices], dec)
-    del ext
+    faces = _faces(ds, dec, mesh)
+    mask_faces = torch.stack([_own_faces(x[dec.owned_slices], dec)
+                              for x in ext])
+    del ext, x, d
     isz = torch.tensor([], dtype=dec.id_dtype).element_size()
     coords = dec.on_device("coords", mesh.device)
 
@@ -990,67 +1091,77 @@ def _cc_block(mask_blk, dec: BlockDecomp, mesh: DPCMesh, connectivity,
         # 4b. the single communication phase: labels (+ masks)
         T = _gather_table(faces, dec, mesh)
         M = _gather_table(mask_faces, dec, mesh) if gather_mask else T >= 0
-        # 5a. positional chase (the paper's table compression)
-        Tstar, table_iters, chase_ok = _table_compress(T, dec,
-                                                       table_max_iter)
-        # 5b. hook + propagate (deviation (d2)): merge labels across cuts
-        G, (perm, sorted_vals), prop_iters, prop_ok = _table_propagate(
-            Tstar, M, coords, dec, connectivity, table_max_iter)
-        # 6. substitution: chase the own label through the table, then take
-        #    its group's propagated maximum (value search)
-        last, g_sorted = Tstar.numel() - 1, G.index_select(0, perm)
-
-        def substitute(o):
-            is_b, pos = dec.boundary_pos(o.clamp(min=0))
-            chased = torch.where((o >= 0) & is_b,
-                                 Tstar.index_select(0, pos.clamp(0, last)), o)
-            return value_substitute(o, chased, sorted_vals, g_sorted)
-
-        table_iters = table_iters + prop_iters
-        comm, exch_rounds = 1, 0
-        converged = int(chase_ok and prop_ok)
-        ghost_bytes = _f32(dec.n_valid_slots * isz) + (
-            _f32(dec.n_valid_slots) if gather_mask else 0.0)
-        table_bytes = _f32(dec.table_size * (isz + 1))
-        masked_frac = _f32(int(M.sum())) / _f32(max(dec.n_valid_slots, 1))
+        subs, table_iters, not_ok = [], [], []
+        for t, m in zip(T, M):
+            # 5a. positional chase (the paper's table compression)
+            Tstar, chase_iters, chase_ok = _table_compress(t, dec,
+                                                           table_max_iter)
+            # 5b. hook + propagate (deviation (d2)): merge labels across
+            #     cuts
+            G, (perm, sorted_vals), prop_iters, prop_ok = _table_propagate(
+                Tstar, m, coords, dec, connectivity, table_max_iter)
+            # 6. substitution: chase the own label through the table, then
+            #    take its group's propagated maximum (value search)
+            subs.append(_cc_substitute(Tstar, dec.boundary_pos, sorted_vals,
+                                       G.index_select(0, perm)))
+            table_iters.append(chase_iters + prop_iters)
+            not_ok.append(int(not (chase_ok and prop_ok)))
+        comm, exch_rounds = [1] * B, [0] * B
+        ghost_bytes = (_f32(dec.n_valid_slots * isz) + (
+            _f32(dec.n_valid_slots) if gather_mask else 0.0)).repeat(B)
+        table_bytes = _f32(dec.table_size * (isz + 1)).repeat(B)
+        masked = [int(m.sum()) for m in M]
     else:
         # 4b-6. sharded: max-flooding on the own+halo stack (no gather)
-        substitute, Ms, geom, exch_rounds, iters, ok = _sharded_cc_resolve(
+        subs, Ms, geom, exch_rounds, table_iters, ok = _sharded_cc_resolve(
             faces, mask_faces, coords, dec, mesh, connectivity, gather_mask,
             table_max_iter)
-        table_iters, _, converged = _preduce_stats(mesh, iters, exch_rounds,
-                                                   ok)
-        comm = exch_rounds + 1             # +1: the static label/mask stack
+        not_ok = [int(not o) for o in ok]
+        comm = [r + 1 for r in exch_rounds]  # +1: the static label/mask stack
         halo = geom.stack_size - geom.rows
         ghost_bytes = (_f32(halo * isz) * (_f32(exch_rounds) + 1.0)
                        + (_f32(halo) if gather_mask else 0.0))
         # evolving stack + static label stack + own chunk + bool mask stack
         table_bytes = _f32((2 * geom.stack_size + geom.rows) * isz
-                           + geom.stack_size)
+                           + geom.stack_size).repeat(B)
         # over in-domain slots (pad slots are mask False); the count is
         # summed as an integer, exact where JAX's float32 psum is
-        masked = mesh.all_reduce([int(Ms[:geom.rows].sum())],
-                                 dist.ReduceOp.SUM)[0]
-        masked_frac = _f32(masked) / _f32(max(dec.n_valid_slots, 1))
+        masked = mesh.all_reduce([int(m[:geom.rows].sum()) for m in Ms],
+                                 dist.ReduceOp.SUM)
+    masked_frac = _f32(masked) / _f32(max(dec.n_valid_slots, 1))
 
-    final = _through_roots(d, dec, mesh, substitute)
-    li, sr, kr, i0 = mesh.pmax(local_iters, stitch_rounds, kernel_rounds, it0)
+    final = torch.stack([_through_roots(d, dec, mesh, sub)
+                         for d, sub in zip(ds, subs)])
+    li, sr, kr, i0, ti, bad = _pmax_lists(mesh, local_iters, stitch_rounds,
+                                          kernel_rounds, first, table_iters,
+                                          not_ok)
     stats = DPCStats(
         local_iters=_i32(li),
-        table_iters=_i32(table_iters),
+        table_iters=_i32(ti),
         stitch_rounds=_i32(sr),
         ghost_bytes=ghost_bytes,
         masked_ghost_fraction=masked_frac,
-        pad_fraction=_f32(dec.pad_fraction),
+        pad_fraction=_f32(dec.pad_fraction).repeat(B),
         comm_phases=_i32(comm),
         kernel_rounds=_i32(kr),
         # the kernel pre-saturates the first compression only
-        global_iters_saved=_i32(max(kr - i0, 0)),
+        global_iters_saved=_i32([max(k - i, 0) for k, i in zip(kr, i0)]),
         table_bytes_peak=table_bytes,
         exchange_rounds=_i32(exch_rounds),
-        converged=_i32(converged),
+        converged=_i32([1 - v for v in bad]),
     )
-    return final.reshape(dec.local), stats
+    return final.reshape((B,) + dec.local), stats
+
+
+def _components(masks, mesh, grid_shape, connectivity, gather_mask,
+                fused_impl, table_mode, table_max_iter, what):
+    check_table_mode(table_mode)
+    dec = _decomp_for(mesh, grid_shape)
+    masks = _pad_block(masks.bool(), dec, mesh, False)
+    labels, stats = _cc_block(masks, dec, mesh, connectivity, gather_mask,
+                              fused_impl, table_mode, table_max_iter)
+    check_converged(stats.converged, what, table_max_iter)
+    return _real(labels, dec, mesh), stats
 
 
 def distributed_connected_components(mask, mesh: DPCMesh, grid_shape,
@@ -1070,11 +1181,24 @@ def distributed_connected_components(mask, mesh: DPCMesh, grid_shape,
     False drops the redundant mask exchange; fused_impl and table_mode as in
     `distributed_manifold`.  Labels are bit-identical across all choices.
     """
-    check_table_mode(table_mode)
-    dec = _decomp_for(mesh, grid_shape)
-    mask = _pad_block(mask.bool(), dec, mesh, False)
-    labels, stats = _cc_block(mask, dec, mesh, connectivity, gather_mask,
-                              fused_impl, table_mode, table_max_iter)
-    check_converged(stats.converged, "distributed_connected_components",
-                    table_max_iter)
-    return _real(labels, dec, mesh), stats
+    labels, stats = _components(mask[None], mesh, grid_shape, connectivity,
+                                gather_mask, fused_impl, table_mode,
+                                table_max_iter,
+                                "distributed_connected_components")
+    return labels[0], _item(stats)
+
+
+def distributed_connected_components_batch(masks, mesh: DPCMesh, grid_shape,
+                                           connectivity: int = 6,
+                                           gather_mask: bool = True,
+                                           fused_impl: str = "auto",
+                                           table_mode: str = "replicated",
+                                           table_max_iter: int = 64):
+    """Batched `distributed_connected_components`: `masks` is a (B, *block)
+    stack of this rank's blocks of B masks of one extent `grid_shape`;
+    returns ((B, *block) labels, DPCStats with a leading (B,) dim), each
+    item equal to its single call.  The collectives fire once for the
+    batch (module docstring)."""
+    return _components(masks, mesh, grid_shape, connectivity, gather_mask,
+                       fused_impl, table_mode, table_max_iter,
+                       "distributed_connected_components_batch")

@@ -616,3 +616,95 @@ def test_distributed_one_rank_nccl_equals_pure(cuda, tmp_path):
                     assert int(stats.converged) == 1
     finally:
         dist.destroy_process_group()
+
+
+def test_distributed_batch_one_rank_nccl_equals_single_calls(cuda, tmp_path):
+    """The batched grid entry points on a 1-rank NCCL group at 64^3, both
+    table modes: each item of a B = 3 batch of order fields and of masks
+    equals its single call (labels and every stats field) and the pure
+    port on the card; a batch launches the fused kernel B times."""
+    import torch.distributed as dist
+    from repro_torch.core.connected_components import \
+        connected_components_grid
+    from repro_torch.core.distributed import (
+        distributed_connected_components,
+        distributed_connected_components_batch, distributed_manifold,
+        distributed_manifold_batch, make_dpc_mesh)
+    from repro_torch.core.ms_segmentation import descending_manifold
+    shape, conn = (64, 64, 64), 6
+    orders = torch.stack([_inputs("manifold", shape, 70 + i, cuda)[0]
+                          for i in range(3)])
+    masks = torch.stack([_inputs("cc", shape, 80 + i, cuda)[0]
+                         for i in range(3)])
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_dpc_mesh((1, 1, 1), device=cuda)
+        for mode in ("replicated", "sharded"):
+            for batch_fn, single_fn, x, kind in (
+                    (distributed_manifold_batch, distributed_manifold,
+                     orders, "manifold"),
+                    (distributed_connected_components_batch,
+                     distributed_connected_components, masks, "cc")):
+                before = kmod.launches[kind]
+                got, stats = batch_fn(x, mesh, shape, conn, table_mode=mode)
+                assert kmod.launches[kind] == before + 3
+                assert got.is_cuda and got.shape == (3,) + shape
+                for b in range(3):
+                    want, st = single_fn(x[b], mesh, shape, conn,
+                                         table_mode=mode)
+                    assert torch.equal(got[b], want), (mode, kind, b)
+                    pure = (descending_manifold(x[b], conn)[0]
+                            if kind == "manifold" else
+                            connected_components_grid(x[b], conn).labels)
+                    assert torch.equal(got[b].reshape(-1),
+                                       pure.reshape(-1)), (mode, kind, b)
+                    for field, v in zip(st._fields, st):
+                        w = getattr(stats, field)
+                        assert w.shape == (3,) and w.dtype == v.dtype
+                        assert w[b].item() == v.item(), (mode, kind, field)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_graph_one_part_nccl_equals_pure(cuda, tmp_path):
+    """The distributed graph backend with one partition (table_size 0, the
+    early return: no table, comm_phases 0) on a 1-rank NCCL group, the
+    11x9x7 tet mesh, both table modes, a mask and a batch of two: labels
+    equal the pure graph cc on the card; the path launches no kernel."""
+    import torch.distributed as dist
+    from repro_torch.core.connected_components import \
+        connected_components_graph
+    from repro_torch.core.distributed import make_dpc_mesh
+    from repro_torch.core.distributed_graph import (
+        GraphDecomp, distributed_connected_components_graph,
+        distributed_connected_components_graph_batch)
+    from repro_torch.data import grid_edge_list
+    shape = (11, 9, 7)
+    n = int(np.prod(shape))
+    s, r = grid_edge_list(shape, 14, device="cpu")
+    dec = GraphDecomp(n, s.numpy(), r.numpy(), 1)
+    assert dec.table_size == 0
+    rng = np.random.default_rng(5)
+    masks = torch.from_numpy(rng.random((2, n)) < 0.6).to(cuda)
+    sc, rc = s.to(cuda).to(torch.int32), r.to(cuda).to(torch.int32)
+    want = [connected_components_graph(m, sc, rc).labels for m in masks]
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_dpc_mesh(1, device=cuda)
+        before = dict(kmod.launches)
+        for mode in ("replicated", "sharded"):
+            got, stats = distributed_connected_components_graph(
+                masks[0], dec, mesh, table_mode=mode)
+            assert got.is_cuda and torch.equal(got, want[0]), mode
+            assert int(stats.comm_phases) == 0
+            assert int(stats.converged) == 1
+            got, stats = distributed_connected_components_graph_batch(
+                masks, dec, mesh, table_mode=mode)
+            for b in range(2):
+                assert torch.equal(got[b], want[b]), (mode, b)
+            assert stats.comm_phases.tolist() == [0, 0]
+        assert dict(kmod.launches) == before
+    finally:
+        dist.destroy_process_group()

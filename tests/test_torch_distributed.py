@@ -31,6 +31,16 @@ kernel's plain version on the CPU) the labels and every field but
 where the local phase starts.  Ragged extents are not compared with JAX's
 distributed functions: under jax 0.9.0 they raise ShardingTypeError there
 (ROADMAP Queue 3 item 6), so ragged cases are held to the pure path.
+
+Batches (`distributed_*_batch`, B = 3 on 16x12x8 and B = 2 on 97x61x43 over
+(2, 2, 2)): each item's labels and stats equal its single call, the stats
+carry a leading (B,) dim, and the batch issues as many halo shifts,
+all-gathers and all-reduces as the single call of its slowest item (every
+item's, in replicated mode); the 16x12x8 batch equals the record of JAX's
+`distributed_*_batch` field for field.  The facade's distributed routes
+(`topology.submit`, each rank passing its block) equal the direct calls,
+and, gathered, JAX's pure routes, the `ms` segmentation's pair hash with
+the global vertex count included.
 """
 import math
 import os
@@ -45,10 +55,12 @@ import torch
 import jax.numpy as jnp
 
 from oracles import oracle_components, oracle_manifold
-from torch_dist_ranks import (GOLDEN_SHAPES, MODES, QUERIES, WORLD,
-                              golden_inputs, grid_cases, grid_inputs)
+from torch_dist_ranks import (BATCHES, GOLDEN_SHAPES, MODES, QUERIES, SWEEP,
+                              WORLD, golden_inputs, grid_cases, grid_inputs,
+                              sweep_field)
 import jax_distributed_golden as golden_run
 
+from repro import topology as jtop
 from repro.core import distributed as jdist
 from repro.core.connected_components import connected_components_grid
 from repro.core.ms_segmentation import ascending_manifold, descending_manifold
@@ -72,6 +84,12 @@ GOLDEN_KEYS = [f"{'x'.join(map(str, s))}|{conn}|{mode}|{query}|{impl}"
                for s in GOLDEN_SHAPES for conn in (6, 26) for mode in MODES
                for query in QUERIES for impl in ("ref", "auto")]
 IMPL_FIELDS = ("kernel_rounds", "local_iters", "global_iters_saved")
+BATCH_KEYS = [f"batch|{name}|{conn}|{mode}|{query}"
+              for name, _, _, conns in BATCHES for conn in conns
+              for mode in MODES for query in QUERIES]
+FACADE_KEYS = [f"facade|{name}|{conns[0]}|{mode}"
+               for name, (_, _, _, conns, _, _) in CASES.items()
+               for mode in MODES]
 
 
 def _names(layout):
@@ -92,6 +110,16 @@ def _jax_pure():
                                                 conn).labels}
             for kind, labels in want.items():
                 out[name, conn, kind] = np.asarray(labels).reshape(shape)
+            if conn == conns[0]:
+                # the facade's pure routes: ms and a threshold sweep
+                out[name, conn, "ms"] = np.asarray(jtop.submit(
+                    jtop.TopologyRequest("ms", order=order,
+                                         connectivity=conn)).segmentation)
+                out[name, conn, "sweep"] = np.asarray(jtop.submit(
+                    jtop.TopologyRequest(
+                        "threshold_sweep", field=sweep_field(shape, seed),
+                        thresholds=np.asarray(SWEEP, np.float32),
+                        connectivity=conn)).labels)
             if name.startswith("corpus"):
                 out[name, conn, "oracle desc"] = oracle_manifold(order, conn,
                                                                  True)
@@ -159,15 +187,17 @@ def run(tmp_path_factory, live_jax):
     return results, refs
 
 
-def _gathered(results, key, shape, layout):
-    """The global labels of a case: every rank's block put in place."""
+def _gathered(results, key, shape, layout, field="labels"):
+    """The global labels of a case: every rank's block put in place (with
+    the blocks' leading dims, if any)."""
     dec = tdist.BlockDecomp(shape, layout, _names(layout))
-    out = np.full(shape, -2, np.int64)
-    blocks = [r[key]["labels"] for r in results[:math.prod(layout)]]
+    blocks = [r[key][field] for r in results[:math.prod(layout)]]
+    lead = tuple(blocks[0].shape[:blocks[0].dim() - len(shape)])
+    out = np.full(lead + tuple(shape), -2, np.int64)
     for rank, block in enumerate(blocks):
         coords = np.unravel_index(rank, layout)
         assert block.dtype == torch.int32
-        out[dec.block_slices(coords)] = block.numpy()
+        out[(Ellipsis,) + dec.block_slices(coords)] = block.numpy()
     assert (out != -2).all(), "the blocks cover the grid"
     return out.astype(np.int32)
 
@@ -495,3 +525,122 @@ def test_ranks_report_the_failures_the_reference_raises(run):
         col = results[rank]["collectives"]
         assert col["not_converged"] == ["replicated", "sharded"], rank
         assert col["default_device"] == "RuntimeError", rank
+
+
+# --- batches ------------------------------------------------------------------
+
+
+def _batch_case(key):
+    _, name, conn, mode, query = key.split("|")
+    (_, shape, b, _), = [c for c in BATCHES if c[0] == name]
+    return shape, b, int(conn), mode, query
+
+
+@pytest.mark.parametrize("key", BATCH_KEYS)
+def test_batch_items_equal_single_calls(run, key):
+    """Each item's block of labels and every stats field equal the item's
+    single call, on every rank; the batched fields carry a leading (B,)
+    dim in the single call's dtype, the same on every rank."""
+    results, _ = run
+    shape, b, _, _, _ = _batch_case(key)
+    stats = _rank_stats(results, key, WORLD)
+    for rank in range(WORLD):
+        got = results[rank][key]
+        assert got["labels"].shape[0] == b
+        for item in range(b):
+            want = results[rank][f"{key}|item{item}"]
+            assert torch.equal(got["labels"][item], want["labels"]), \
+                (rank, item)
+            for field, v in want["stats"].items():
+                g = got["stats"][field]
+                assert g.shape == (b,) and g.dtype == v.dtype, field
+                assert g[item].item() == v.item(), (rank, item, field)
+    assert int(stats["converged"].min()) == 1
+
+
+@pytest.mark.parametrize("key", BATCH_KEYS)
+def test_batch_collectives_fire_once_for_the_batch(run, key):
+    """A batch issues as many shifts, all-gathers and all-reduces as the
+    single call of its slowest item; in replicated mode every item's single
+    call issues the same, so the batch issues what one single call does."""
+    results, _ = run
+    _, b, _, mode, _ = _batch_case(key)
+    for rank in range(WORLD):
+        got = results[rank][key]["counts"]
+        singles = [results[rank][f"{key}|item{i}"]["counts"]
+                   for i in range(b)]
+        assert got == {k: max(c[k] for c in singles) for k in got}, rank
+        assert got["shift"] >= 3 and got["all_reduce"] >= 1
+        assert got["permute"] == 0
+        if mode == "replicated":
+            assert all(c == got for c in singles), rank
+            assert got["all_gather"] >= 1
+
+
+@pytest.mark.parametrize("key", [k for k in BATCH_KEYS
+                                 if k.split("|")[1] == "16x12x8"])
+def test_batch_matches_jax_distributed_batch(run, golden, key):
+    """The 16x12x8 batch (fused_impl "ref") against JAX's
+    distributed_manifold_batch / distributed_connected_components_batch:
+    the gathered (B, *grid) labels and every (B,) stats field, value and
+    dtype."""
+    results, _ = run
+    shape, b, conn, mode, query = _batch_case(key)
+    orders, masks = golden_run.batch_inputs(shape, b)
+    np.testing.assert_array_equal(golden["batch__orders"], orders)
+    np.testing.assert_array_equal(golden["batch__masks"], masks)
+    gkey = golden_run.batch_key(conn, mode, query)
+    want = golden[f"{gkey}__labels"]
+    assert want.dtype == np.int32 and want.shape == (b,) + shape
+    np.testing.assert_array_equal(
+        _gathered(results, key, shape, (2, 2, 2)), want)
+    for field, v in _rank_stats(results, key, WORLD).items():
+        w = golden[f"{gkey}__{field}"]
+        assert str(v.dtype).split(".")[1] == str(w.dtype), field
+        np.testing.assert_array_equal(v.numpy(), w, err_msg=field)
+
+
+# --- the facade's distributed routes -------------------------------------------
+
+
+@pytest.mark.parametrize("key", FACADE_KEYS)
+def test_facade_routes_equal_direct_calls_and_jax(run, key):
+    """`topology.submit(backend="distributed")`, each rank passing its
+    block and `grid_shape`: cc and both manifolds equal the direct calls
+    (labels and `stats == as_dict()`); ms gives both manifolds with their
+    stats and, gathered, JAX's pure ms segmentation (the pair hash with the
+    global vertex count); the sweep, gathered, equals JAX's pure sweep with
+    batched stats, and no threshold gives (0, *block) int32 labels."""
+    results, refs = run
+    _, name, conn, mode = key.split("|")
+    _, shape, layout, _, _, _ = CASES[name]
+    n = math.prod(layout)
+
+    def direct(query):
+        return f"{name}|{conn}|{mode}|{query}"
+    for rank in range(n):
+        res = results[rank]
+        for query, ref in (("cc", "cc_gather"), ("manifoldTrue", "desc"),
+                           ("manifoldFalse", "asc")):
+            got, want = res[f"{key}|{query}"], res[direct(ref)]
+            assert torch.equal(got["labels"], want["labels"]), query
+            assert got["stats"] == tdist.DPCStats(
+                **want["stats"]).as_dict(), query
+        ms = res[f"{key}|ms"]
+        for field, ref in (("descending", "desc"), ("ascending", "asc")):
+            assert torch.equal(ms[field], res[direct(ref)]["labels"])
+            assert ms["stats"][field] == tdist.DPCStats(
+                **res[direct(ref)]["stats"]).as_dict()
+        assert ms["segmentation"].dtype == torch.int32
+        sweep = res[f"{key}|sweep3"]
+        assert sweep["stats"]["converged"] == [1] * len(SWEEP)
+        empty = res[f"{key}|sweep0"]["labels"]
+        assert empty.dtype == torch.int32
+        assert tuple(empty.shape) == (0,) + tuple(
+            res[direct("desc")]["labels"].shape)
+    np.testing.assert_array_equal(
+        _gathered(results, f"{key}|ms", shape, layout, "segmentation"),
+        refs[name, int(conn), "ms"].reshape(shape))
+    np.testing.assert_array_equal(
+        _gathered(results, f"{key}|sweep3", shape, layout),
+        refs[name, int(conn), "sweep"].reshape((len(SWEEP),) + shape))

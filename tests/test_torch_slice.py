@@ -147,10 +147,14 @@ def test_validation_and_unported_routes(order):
         topology.submit(topology.TopologyRequest("ms", order=order,
                                                  table_mode="sharded"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(ValueError, match="need grid_shape="):
         topology.submit(topology.TopologyRequest(
             "ms", order=order, backend="distributed", mesh=object()),
             device="cpu")
+    req = topology.TopologyRequest("cc", mask=np.ones((2, 3), bool),
+                                   backend="distributed", mesh=object(),
+                                   grid_shape=(4, 3))
+    assert req.shape() == (4, 3)
     graph = dict(domain="graph", senders=np.zeros(1, int),
                  receivers=np.zeros(1, int))
     with pytest.raises(NotImplementedError, match="manifolds on distributed "
@@ -158,10 +162,10 @@ def test_validation_and_unported_routes(order):
         topology.submit(topology.TopologyRequest(
             "manifold", order=np.arange(3, dtype=np.int32), **graph),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(ValueError, match="need decomp="):
         topology.submit(topology.TopologyRequest(
             "cc", mask=np.ones(3, bool), backend="distributed",
-            mesh=object(), decomp=object(), **graph), device="cpu")
+            mesh=object(), **graph), device="cpu")
     with pytest.raises(NotImplementedError, match="MS on distributed graphs"):
         topology.submit(topology.TopologyRequest(
             "ms", order=np.arange(3, dtype=np.int32), backend="distributed",
@@ -169,6 +173,41 @@ def test_validation_and_unported_routes(order):
     res = topology.submit_many([topology.TopologyRequest(
         "manifold", order=order, tag=i) for i in range(2)], device="cpu")
     assert [r.tag for r in res] == [0, 1]
+
+
+ORDER_60 = np.random.default_rng(0).permutation(60).reshape(5, 4, 3)
+
+
+@pytest.mark.parametrize("query", ["ms", "manifold"])
+def test_float_order_raises_jax_value_error(query):
+    """A floating order field on the grid ms / manifold routes raises the
+    ValueError JAX's route raises, with its message."""
+    order = ORDER_60.astype(np.float32)
+    with pytest.raises(ValueError) as want:
+        jtop.submit(jtop.TopologyRequest(query, order=order))
+    with pytest.raises(ValueError) as got:
+        topology.submit(topology.TopologyRequest(query, order=order),
+                        device="cpu")
+    assert str(got.value) == str(want.value) == \
+        "Invalid integer data type 'f'."
+
+
+@pytest.mark.parametrize("query", ["ms", "manifold"])
+def test_int64_order_gives_jax_labels_where_jax_raises(query):
+    """An int64 order field: JAX's route raises OverflowError (its steepest
+    init pads with an int64 fill that int32 cannot hold, x64 off; a
+    reference fault, ROADMAP Queue 3), the port cuts the field to int32 and
+    gives JAX's labels on the field cast to int32."""
+    with pytest.raises(OverflowError):
+        jtop.submit(jtop.TopologyRequest(query, order=ORDER_60.astype(
+            np.int64)))
+    got = topology.submit(topology.TopologyRequest(
+        query, order=ORDER_60.astype(np.int64)), device="cpu")
+    want = jtop.submit(jtop.TopologyRequest(query, order=ORDER_60.astype(
+        np.int32)))
+    for field in ("labels", "ascending", "descending", "segmentation"):
+        if getattr(want, field) is not None:
+            _equal(getattr(got, field), getattr(want, field))
 
 
 @pytest.mark.parametrize("seed,origin", [(7, None), (0, (3, 0, 5))])

@@ -1,6 +1,8 @@
 """Rank side of `tests/test_torch_distributed.py`: one gloo group of 8 CPU
-ranks runs the port's distributed grid backend on every case and writes its
-blocks of labels and its stats to `<out>/rank<r>.pt`.
+ranks runs the port's distributed grid backend on every case (single calls,
+batches with their items' single calls and the collectives each issues,
+and the `topology.submit` routes) and writes its blocks of labels and its
+stats to `<out>/rank<r>.pt`.
 
     python tests/torch_dist_ranks.py RANK WORLD STORE_FILE OUT_DIR
 
@@ -18,7 +20,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from jax_distributed_golden import batch_inputs
 from oracles import GRID_SEED_CORPUS, ragged_grid_case
+from torch_dist_graph_ranks import counted
 
 WORLD = 8
 RAGGED = (97, 61, 43)
@@ -27,6 +31,12 @@ QUERIES = ("desc", "asc", "cc_gather", "cc_nogather")
 MODES = ("replicated", "sharded")
 GOLDEN_SHAPES = ((16, 16, 16), (16, 12, 8))
 GOLDEN_MASK_P = 0.6
+# batches over (2, 2, 2): (name, shape, B, connectivities); the 16x12x8
+# batch is `jax_distributed_golden.batch_inputs`, the ragged one its
+# generator's first B items at that extent
+BATCHES = (("16x12x8", (16, 12, 8), 3, (6, 26)), ("x".join(map(
+    str, RAGGED)), RAGGED, 2, (6,)))
+SWEEP = (0.25, 0.5, 0.75)
 
 
 def grid_cases():
@@ -60,16 +70,85 @@ def golden_inputs(shape):
     return order, rng.random(shape) < GOLDEN_MASK_P
 
 
-def run_query(query, block, mesh, shape, conn, mode, fused_impl="auto"):
-    from repro_torch.core.distributed import (
-        distributed_connected_components, distributed_manifold)
+def sweep_field(shape, seed):
+    """The float32 field of a case's threshold sweep, seeded."""
+    return np.random.default_rng(seed + 1).random(shape, dtype=np.float32)
+
+
+def run_query(query, block, mesh, shape, conn, mode, fused_impl="auto",
+              batch=False):
+    from repro_torch.core import distributed as d
     if query in ("desc", "asc"):
-        return distributed_manifold(block[0], mesh, shape, conn,
-                                    descending=query == "desc",
-                                    fused_impl=fused_impl, table_mode=mode)
-    return distributed_connected_components(
-        block[1], mesh, shape, conn, gather_mask=query == "cc_gather",
-        fused_impl=fused_impl, table_mode=mode)
+        fn = d.distributed_manifold_batch if batch else d.distributed_manifold
+        return fn(block[0], mesh, shape, conn, descending=query == "desc",
+                  fused_impl=fused_impl, table_mode=mode)
+    fn = (d.distributed_connected_components_batch if batch
+          else d.distributed_connected_components)
+    return fn(block[1], mesh, shape, conn, gather_mask=query == "cc_gather",
+              fused_impl=fused_impl, table_mode=mode)
+
+
+def batch_runs(rank, record):
+    """Each batch of `BATCHES` in both modes through the four queries with
+    fused_impl "ref" (JAX's CPU path), and each of its items alone, with
+    the collectives each call issued."""
+    from repro_torch.core.distributed import BlockDecomp, make_dpc_mesh
+    mesh = make_dpc_mesh((2, 2, 2), device="cpu")
+    counts = counted(mesh)
+    for name, shape, b, conns in BATCHES:
+        sl = (slice(None),) + BlockDecomp(shape, mesh.layout,
+                                          mesh.names).block_slices(
+                                              mesh.coords)
+        orders, masks = batch_inputs(shape, b)
+        block = (torch.from_numpy(orders[sl].copy()),
+                 torch.from_numpy(masks[sl].copy()))
+        for conn in conns:
+            for mode in MODES:
+                for query in QUERIES:
+                    key = f"batch|{name}|{conn}|{mode}|{query}"
+                    for item in [None] + list(range(b)):
+                        for k in counts:
+                            counts[k] = 0
+                        x = block if item is None else tuple(
+                            t[item] for t in block)
+                        labels, stats = run_query(
+                            query, x, mesh, shape, conn, mode, "ref",
+                            batch=item is None)
+                        record(key if item is None else f"{key}|item{item}",
+                               labels, stats, dict(counts))
+
+
+def facade_runs(groups, rank, record):
+    """`topology.submit(backend="distributed")` on every case at its first
+    connectivity, both modes: cc, both manifolds, ms, and a threshold
+    sweep over `SWEEP` and over no threshold, each rank passing its
+    block."""
+    from repro_torch.core.distributed import BlockDecomp, make_dpc_mesh
+    from repro_torch.topology import TopologyRequest, submit
+    for name, shape, layout, conns, mask_p, seed in grid_cases():
+        if rank >= math.prod(layout):
+            continue
+        mesh = make_dpc_mesh(layout, group=groups[math.prod(layout)],
+                             device="cpu")
+        sl = BlockDecomp(shape, mesh.layout, mesh.names).block_slices(
+            mesh.coords)
+        order, mask = grid_inputs(shape, mask_p, seed)
+        field = sweep_field(shape, seed)[sl]
+        for mode in MODES:
+            req = dict(backend="distributed", mesh=mesh, grid_shape=shape,
+                       connectivity=conns[0], table_mode=mode)
+            out = {"cc": submit(TopologyRequest("cc", mask=mask[sl], **req)),
+                   "ms": submit(TopologyRequest("ms", order=order[sl],
+                                                **req))}
+            for desc in (True, False):
+                out[f"manifold{desc}"] = submit(TopologyRequest(
+                    "manifold", order=order[sl], descending=desc, **req))
+            for thr in (SWEEP, ()):
+                out[f"sweep{len(thr)}"] = submit(TopologyRequest(
+                    "threshold_sweep", field=field,
+                    thresholds=np.asarray(thr, np.float32), **req))
+            for query, res in out.items():
+                record(f"facade|{name}|{conns[0]}|{mode}|{query}", res)
 
 
 def collective_checks(groups, rank):
@@ -143,9 +222,15 @@ def main(rank, world, store, out_dir):
     results = {"collectives": {**collective_checks(groups, rank),
                                **failure_checks(rank)}}
 
-    def record(key, labels, stats):
+    def record(key, labels, stats, counts=None):
         results[key] = {"labels": labels.cpu(),
-                        "stats": dict(zip(stats._fields, stats))}
+                        "stats": dict(zip(stats._fields, stats)),
+                        "counts": counts}
+
+    def record_result(key, res):
+        results[key] = {f: getattr(res, f) for f in (
+            "labels", "ascending", "descending", "segmentation", "stats",
+            "meta")}
 
     for name, shape, layout, conns, mask_p, seed in cases:
         if rank >= math.prod(layout):
@@ -178,6 +263,8 @@ def main(rank, world, store, out_dir):
                         record(f"{name}|{conn}|{mode}|{query}|{impl}",
                                *run_query(query, block, mesh, shape, conn,
                                           mode, fused_impl=impl))
+    batch_runs(rank, record)
+    facade_runs(groups, rank, record_result)
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
