@@ -91,7 +91,34 @@ seconds:
      peak host and device memory; 10b random_1m over eight partitions
      (every partition adjacent to every other), a batch of four masks in
      both table modes equal to its single calls, the first two equal to
-     phase 8's.  No kernel launches there.
+     phase 8's.  No kernel launches there;
+ 11. the serving engine (`repro_torch.serve`) at the full widths of
+     `configs/serve_topology.py` (extents 96^3, 97x61x43, 64x96x48 and
+     101x53x37, its query mix, sweep_k 4, max_batch 64), 64 requests of its
+     synthetic workload: 11a `TopologyEngine.submit_batch` cold, then warm
+     (no build, a hit on every bucket), every result == `submit_many` bit
+     for bit, fused launches == the grid buckets' capacity sum, requests/s,
+     hit rate, pad fraction, executables, peak device memory and a profile
+     of a warm pass of the first 16; then, outside the launch windows,
+     every slot of a pass as stacked and padded (the real payloads in
+     their pow2 layouts and the all-inert dummy slots) through the fused
+     kernel and its plain version, pointers and rounds equal; 11b the async plane on the same trace
+     (open-loop arrivals, VirtualClock with execution time charged): every
+     handle == `submit_many`, flush reasons summing to the executions,
+     deadline hit rate and latency percentiles; 11c overload at 4x 11a's
+     warm rate (queue depth 24, shed "hopeless", then "never" on the same
+     trace): completed handles == `submit_many`, the rest typed Overloaded or
+     DeadlineShed; 11d the distributed engine on one NCCL rank at phase
+     4's 512^3 block, an ms and 9a's K = 4 sweep in one submit_batch ==
+     the facade's routes and phase 4's pure ms, timed beside the facade's
+     two calls; 11e eight gloo ranks sharing the card, 97x61x43 over
+     (2, 2, 2): the sync engine == each rank's facade in all four
+     (connectivity, table mode) sets, the async engine in the first, where
+     a table_max_iter=1 request fails alone, the multi-rank clock guard,
+     and the ghost-masked kernel == plain on each rank's real and dummy
+     block.  The fused kernel's launches there go into the kernels line as
+     `launches_serve`, and the errors of 11a's and 11e's comparisons into
+     its `max_abs_err`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -177,6 +204,14 @@ DIST_B_BATCH_Q = 0.8
 GRAPH_PARTS = 2
 RANDOM_PARTS = 8
 RANDOM_BATCH_QS = (None, 0.9, 0.8, 0.5)
+# phase 11: the serving engine at configs/serve_topology.py's full widths,
+# `SERVE_N` requests of its synthetic workload (seed `SERVE_SEED`); 11e's
+# gloo ranks serve the ragged grid over (2, 2, 2) (seed `SERVE_E_SEED`)
+SERVE_N = 64
+SERVE_PROFILED = 16
+SERVE_SEED = 0
+SERVE_E_SEED = 11
+SERVE_E_QS = (0.5, 0.7, 0.9)
 
 
 def phase(name, t0):
@@ -1758,6 +1793,514 @@ def distributed_path(smi, host, conn, q, dev):
     return launches, fused
 
 
+def _serve_launch_sums(engine, runs_before=None):
+    """{kind: slots} the pure grid executables of `engine` ran since
+    `runs_before` (a `runs_per_executable` snapshot): capacity times
+    executions.  The fused kernel launches once a slot, dummies included."""
+    before = runs_before or {}
+    out = {"manifold": 0, "cc": 0}
+    for key, runs in engine.cache_info()["runs_per_executable"].items():
+        if key[:2] == ("grid", "pure"):
+            out[key[2]] += key[-2] * (runs - before.get(key, 0))
+    return out
+
+
+def _serve_same(got, want, what):
+    """Query, tag, every label field (bit for bit, dtype, device) and the
+    stats of two TopologyResults."""
+    check((got.query, got.tag) == (want.query, want.tag), f"{what}: query "
+          f"and tag")
+    for f in ("labels", "ascending", "descending", "segmentation"):
+        a, b = getattr(got, f), getattr(want, f)
+        check((a is None) == (b is None) and (
+            a is None or (a.device == b.device and a.dtype == b.dtype
+                          and a.shape == b.shape
+                          and bool((a == b).all()))),
+              f"{what}: {f} == the facade's, bit for bit")
+    check(got.stats == want.stats, f"{what}: stats == the facade's")
+
+
+def _serve_open_loop(engine, trace, reqs):
+    """Drive an async engine through a trace's arrivals; returns the
+    handles after the final drain."""
+    handles = []
+    for req, (t, dl) in zip(reqs, trace.arrivals):
+        if t > engine.clock.now():
+            engine.advance(t - engine.clock.now())
+        handles.append(engine.submit(req, deadline=dl))
+    engine.drain()
+    return handles
+
+
+def _latency_text(engine):
+    lat = np.asarray(engine.latencies) * 1e3
+    if lat.size == 0:
+        return "no completed request"
+    return (f"latency p50 {np.percentile(lat, 50):.3f} ms, p99 "
+            f"{np.percentile(lat, 99):.3f} ms (virtual clock charged with "
+            f"measured execution time)")
+
+
+def _rank_11e(rank, store, tmp, device):
+    """Phase 11e, one of eight ranks sharing the card over gloo, layout
+    (2, 2, 2): 97x61x43 at connectivity 6 and 26 in both table modes, a cc,
+    an ms, an ascending manifold and a sweep of three thresholds through
+    the sync engine, each result == this rank's facade result (labels and
+    stats); the first of these four sets also through the async engine on
+    a VirtualClock, where an ms request with table_max_iter=1 fails alone;
+    the clock guard raises ValueError for a MonotonicClock.  On the card,
+    the ghost-masked fused launch on this rank's real block and on an inert
+    dummy block (the manifold bucket's capacity slot) is held to the plain
+    version.  Writes its fused launches and errors to `tmp`."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    _rank_setup(rank, 8, store, "gloo", device)
+    from repro_torch.core.distributed import _decomp_for, make_dpc_mesh
+    from repro_torch.core.ids import compute_order
+    from repro_torch.serve import (AsyncTopologyEngine, MonotonicClock,
+                                   TopologyEngine, VirtualClock)
+    from repro_torch.topology import TopologyRequest, submit_many
+    mesh = make_dpc_mesh((2, 2, 2), device=device)
+    dec = _decomp_for(mesh, RAGGED)
+    sl = dec.block_slices(mesh.coords)
+    rng = np.random.default_rng(SERVE_E_SEED)
+    field = rng.standard_normal(RAGGED).astype(np.float32)
+    mask = rng.random(RAGGED) < 0.3
+    thr = np.quantile(field, SERVE_E_QS).astype(np.float32)
+    order = compute_order(torch.from_numpy(field).to(device))
+
+    def blk(x):
+        return torch.as_tensor(x, device=device)[sl].contiguous()
+
+    launches = {"manifold": 0, "cc": 0}
+    for conn in (6, 26):
+        for mode in MODES:
+            what = f"11e rank {rank} conn {conn} {mode}"
+            base = dict(backend="distributed", mesh=mesh, grid_shape=RAGGED,
+                        connectivity=conn, table_mode=mode)
+            reqs = [TopologyRequest("cc", mask=blk(mask), tag="cc", **base),
+                    TopologyRequest("ms", order=blk(order), tag="ms",
+                                    **base),
+                    TopologyRequest("manifold", order=blk(order),
+                                    descending=False, tag="asc", **base),
+                    TopologyRequest("threshold_sweep", field=blk(field),
+                                    thresholds=thr, tag="sweep", **base)]
+            want = submit_many(reqs)
+            _zero_fused_launches()
+            got = TopologyEngine(device=device).submit_batch(reqs)
+            sync_launches = _fused_launches()
+            for k in launches:
+                launches[k] += sync_launches[k]
+            # cc: the cc and the three sweep masks; manifold: the ms's two
+            # directions and the flipped manifold, one dummy slot
+            check(device != "cuda" or sync_launches == {"manifold": 4,
+                                                        "cc": 4},
+                  f"{what}: one launch a slot ({sync_launches})")
+            for g, w in zip(got, want):
+                _serve_same(g, w, f"{what} sync {w.tag}")
+            if (conn, mode) != (6, MODES[0]):
+                continue
+            eng = AsyncTopologyEngine(max_batch=4, clock=VirtualClock(),
+                                      device=device)
+            hs = [eng.submit(r, deadline=0.5 * (i + 1))
+                  for i, r in enumerate(reqs)]
+            eng.advance(1.0)        # a deadline flush, then the drain
+            eng.drain()
+            for h, w in zip(hs, want):
+                check(h.exception() is None, f"{what} async {w.tag}: "
+                      f"{h.exception()!r}")
+                _serve_same(h.result(), w, f"{what} async {w.tag}")
+            bad = dataclasses.replace(reqs[1], table_max_iter=1, tag="bad")
+            hb, hg = eng.submit(bad), eng.submit(reqs[0])
+            eng.drain()
+            s = eng.stats
+            check(isinstance(hb.exception(), RuntimeError)
+                  and "max_iter" in str(hb.exception())
+                  and hg.exception() is None and s.failures == 1
+                  and s.batches == (s.flush_capacity + s.flush_deadline
+                                    + s.flush_drain + s.flush_retry)
+                  and s.flush_deadline >= 1,
+                  f"{what}: the table_max_iter=1 request fails alone "
+                  f"({hb.exception()!r}, {s.as_dict()})")
+            _serve_same(hg.result(), want[0], f"{what} async after failure")
+    try:
+        AsyncTopologyEngine(clock=MonotonicClock(), device=device).submit(
+            reqs[0])
+        guard = "no error"
+    except ValueError as e:
+        guard = "ValueError" if "VirtualClock" in str(e) else str(e)
+    check(guard == "ValueError", f"11e rank {rank}: the clock guard raises "
+          f"ValueError for a MonotonicClock ({guard})")
+    err = {"manifold": 0, "cc": 0}
+    if device == "cuda":
+        ob, mb = blk(order), blk(mask)
+        for conn in (6, 26):
+            for name, block in (("real", (ob, mb)),
+                                ("dummy", (torch.full_like(ob, -1),
+                                           torch.zeros_like(mb)))):
+                fused = _ghost_masked_vs_plain(
+                    block, dec, mesh, conn, f"11e rank {rank} {name} block")
+                for kind, (e, _) in fused.items():
+                    err[kind] = max(err[kind], e)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "fused_err": err}, f)
+    dist.destroy_process_group()
+
+
+def _serve_slots_vs_plain(engine, reqs):
+    """Serve `reqs` on `engine` with its execution seam wrapped: before each
+    pure grid execution, every slot of the stacked padded batch (the real
+    payloads in their pow2 layout, then the all-inert dummy slots) goes
+    through the fused kernel and its plain version, pointers and rounds
+    exactly equal.  Returns ({kind: (max abs error, max rounds)}, {kind:
+    slots compared}, {kind: dummy slots among them}, layouts seen)."""
+    from repro_torch.kernels import fused_local_phase as kmod, ref
+    err = {"manifold": (0, 0), "cc": (0, 0)}
+    n = {"manifold": 0, "cc": 0}
+    dummies = {"manifold": 0, "cc": 0}
+    layouts = set()
+    inner = engine._execute
+
+    def execute(fn, group, args):
+        g0 = group[0]
+        if (g0.domain, g0.backend) == ("grid", "pure"):
+            stack = args[0]
+            layouts.add((g0.kind, tuple(stack.shape[1:]), len(stack)))
+            for pos, x in enumerate(stack):
+                got, r = kmod.fused_local_phase(x, g0.connectivity,
+                                                mode=g0.kind)
+                want, wr = ref.fused_local_phase_ref(x, g0.connectivity,
+                                                     mode=g0.kind)
+                e = int((got.long() - want.long()).abs().max())
+                slot = "dummy" if pos >= len(group) else "real"
+                check(got.dtype == want.dtype and e == 0 and r == wr,
+                      f"11a {g0.kind} {slot} slot {pos} of a "
+                      f"{tuple(stack.shape)} stack: kernel == plain (max "
+                      f"err {e}, rounds {r} vs {wr})")
+                err[g0.kind] = (max(err[g0.kind][0], e),
+                                max(err[g0.kind][1], r))
+                n[g0.kind] += 1
+                dummies[g0.kind] += pos >= len(group)
+        return inner(fn, group, args)
+
+    engine._execute = execute
+    try:
+        engine.submit_batch(reqs)
+    finally:
+        engine._execute = inner
+    return err, n, dummies, layouts
+
+
+def serve_path(smi, host, conn, dev):
+    """Phase 11: the serving engine (`repro_torch.serve`) on the card (`dev`;
+    a CPU device runs it on the CPU with nothing timed and no launch
+    counted: a rehearsal at small sizes).  11a the sync engine at
+    `configs/serve_topology.py`'s full widths, cold and warm; 11b the async
+    plane on the same trace; 11c overload at `overload_factor` times 11a's
+    warm rate; 11d the distributed engine on one NCCL rank at phase 4's
+    512^3 block; 11e eight gloo ranks on 97x61x43.  `host` holds phase 4's
+    order and pure labels.  Returns the fused kernel's launches by
+    sub-phase, and by sub-phase and mode the (max abs error, rounds) of its
+    launches on 11a's stacked slots and 11e's blocks held to the plain
+    version (on the card only)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs.serve_topology import full_config
+    from repro_torch.core.distributed import make_dpc_mesh
+    from repro_torch.data import perlin_noise, quantile
+    from repro_torch.serve import (AsyncTopologyEngine, DeadlineShed,
+                                   Overloaded, PlaneError, TopologyEngine,
+                                   VirtualClock)
+    from repro_torch.serve.workload import (overload_trace,
+                                            synthetic_requests,
+                                            synthetic_trace)
+    from repro_torch.topology import TopologyRequest, submit, submit_many
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_gb(reset=False):
+        if not on_card:
+            return None
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+            return None
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    cfg = full_config()
+    launches = {}
+    engine_kw = dict(min_extent=cfg.min_extent, max_batch=cfg.max_batch,
+                     cache_capacity=cfg.cache_capacity,
+                     slot_cost_cells=cfg.slot_cost_cells or None, device=dev)
+
+    # 11a. the sync engine, cold then warm --------------------------------
+    t0 = time.perf_counter()
+    reqs = synthetic_requests(SERVE_N, cfg.shapes, cfg.mix, cfg.connectivity,
+                              cfg.sweep_k, seed=SERVE_SEED, device=dev)
+    eng = TopologyEngine(**engine_kw)
+    passes = {}
+    for name in ("cold", "warm"):
+        runs0 = dict(eng.cache_info()["runs_per_executable"])
+        before = {k: getattr(eng.stats, k) for k in
+                  ("cache_misses", "cache_hits", "batches")}
+        sync()
+        peak_gb(reset=True)
+        _zero_fused_launches()
+        t = time.perf_counter()
+        got = eng.submit_batch(reqs)
+        sync()
+        secs = time.perf_counter() - t
+        launches[f"11a {name}"] = _fused_launches()
+        slots = _serve_launch_sums(eng, runs0)
+        check(not on_card or launches[f"11a {name}"] == slots,
+              f"11a {name}: fused launches {launches[f'11a {name}']} == the "
+              f"grid buckets' capacity sum {slots}")
+        passes[name] = dict(secs=secs, peak=peak_gb(), slots=slots, got=got,
+                            batches=eng.stats.batches - before["batches"],
+                            misses=eng.stats.cache_misses
+                            - before["cache_misses"],
+                            hits=eng.stats.cache_hits - before["cache_hits"])
+    warm = passes["warm"]
+    check(warm["misses"] == 0 and warm["hits"] == warm["batches"],
+          f"11a warm replay builds nothing and hits on every bucket "
+          f"({warm['misses']} builds, {warm['hits']} hits, "
+          f"{warm['batches']} executions)")
+    t = time.perf_counter()
+    want = submit_many(reqs, dev)
+    sync()
+    seq_s = time.perf_counter() - t
+    for name in ("cold", "warm"):
+        for i, (g, w) in enumerate(zip(passes[name].pop("got"), want)):
+            _serve_same(g, w, f"11a {name} request {i} ({w.query})")
+    st = eng.stats
+    warm_rps = SERVE_N / warm["secs"]
+    layouts = sorted({(k[2], k[5], k[-2]) for k in
+                      eng.cache_info()["runs_per_executable"]})
+    print(f"  11a {SERVE_N} requests ({st.items // 2} items a pass) at "
+          f"{cfg.shapes}, mix {cfg.mix}, sweep_k {cfg.sweep_k}, max_batch "
+          f"{cfg.max_batch}: engine == submit_many bit for bit, cold and "
+          f"warm; {len(eng._exec)} executables (kind, layout, capacity): "
+          f"{layouts}")
+    for name, p in passes.items():
+        print(f"  11a {name}: {p['secs'] * 1e3:.3f} ms, "
+              f"{SERVE_N / p['secs']:.3f} requests/s, {p['batches']} "
+              f"executions, {p['misses']} builds, {p['hits']} hits, fused "
+              f"launches {launches[f'11a {name}']} == capacity sum "
+              f"{p['slots']}, peak device memory {p['peak']} GB ({smi})")
+    fused = {}
+    if on_card:
+        # outside the launch windows, on an engine of its own (its stats
+        # stay apart): every slot the fused kernel saw in a pass, as stacked
+        # and padded, held to the plain version
+        fused["11a"], n_cmp, n_dummy, seen = _serve_slots_vs_plain(
+            TopologyEngine(**engine_kw), reqs)
+        check(n_cmp == warm["slots"] and seen == set(layouts),
+              f"11a: the slot check saw every slot of every executable "
+              f"({n_cmp} against {warm['slots']}; {sorted(seen)})")
+        print(f"  11a every slot of a pass through the fused kernel and its "
+              f"plain version, as stacked and padded: {n_cmp} slots, of "
+              f"which {n_dummy} dummy; pointers and rounds equal, (max err, "
+              f"max rounds) {fused['11a']}")
+    print(f"  11a sequential facade (submit_many): {seq_s * 1e3:.3f} ms, "
+          f"{SERVE_N / seq_s:.3f} requests/s; engine hit rate "
+          f"{st.hit_rate:.3f}, pad fraction {st.pad_fraction:.6f} "
+          f"({st.real_cells // 2} real of {st.padded_cells // 2} executed "
+          f"cells a pass) ({smi})")
+    if on_card:
+        # the first SERVE_PROFILED requests on an engine of their own,
+        # warmed once: a whole pass is ~40,000 profiler events, ~40 s of
+        # the profiler's own bookkeeping
+        sub = reqs[:SERVE_PROFILED]
+        peng = TopologyEngine(**engine_kw)
+        peng.submit_batch(sub)
+        profile(lambda: peng.submit_batch(sub),
+                f"11a warm pass of the first {SERVE_PROFILED} requests",
+                top=8)
+        del peng, sub
+    phase("serve 11a: sync engine, full widths", t0)
+
+    # 11b. the async plane on the same trace ------------------------------
+    t0 = time.perf_counter()
+    trace = synthetic_trace(SERVE_N, cfg.shapes, cfg.mix, cfg.connectivity,
+                            cfg.sweep_k, seed=SERVE_SEED, rate=cfg.rate,
+                            deadline_slack=cfg.deadline_slack)
+    aeng = AsyncTopologyEngine(clock=VirtualClock(),
+                               charge_execution_time=True, **engine_kw)
+    _zero_fused_launches()
+    handles = _serve_open_loop(aeng, trace, trace.requests(device=dev))
+    sync()
+    launches["11b"] = _fused_launches()
+    check(not on_card or launches["11b"] == _serve_launch_sums(aeng),
+          f"11b: fused launches {launches['11b']} == the capacity sum")
+    for i, (h, w) in enumerate(zip(handles, want)):
+        check(h.done() and h.exception() is None,
+              f"11b request {i}: {h.exception()!r}")
+        _serve_same(h.result(), w, f"11b request {i} ({w.query})")
+    s = aeng.stats
+    check(s.batches == s.flush_capacity + s.flush_deadline + s.flush_drain
+          + s.flush_retry, "11b: the flush reasons sum to the executions")
+    print(f"  11b open loop, rate {cfg.rate}/s, deadline slack "
+          f"{cfg.deadline_slack} s: {s.completed} handles == submit_many; "
+          f"{s.batches} executions (capacity {s.flush_capacity}, deadline "
+          f"{s.flush_deadline}, drain {s.flush_drain}, retry "
+          f"{s.flush_retry}); deadline hit rate {s.deadline_hit_rate:.3f}; "
+          f"{_latency_text(aeng)}; virtual clock at "
+          f"{aeng.clock.now():.3f} s ({smi})")
+    phase("serve 11b: async plane", t0)
+
+    # 11c. overload at `overload_factor` x the warm rate --------------------
+    # shed_policy "hopeless" (the config's overload run), then "never" on
+    # the same trace: admission alone refuses work and deadline flushes fire
+    t0 = time.perf_counter()
+    otrace = overload_trace(SERVE_N, cfg.shapes, cfg.mix, cfg.connectivity,
+                            cfg.sweep_k, seed=SERVE_SEED,
+                            sustainable_rps=warm_rps,
+                            factor=cfg.overload_factor)
+    for policy in ("hopeless", "never"):
+        oeng = AsyncTopologyEngine(clock=VirtualClock(),
+                                   charge_execution_time=True,
+                                   max_queue_depth=cfg.overload_queue_depth,
+                                   shed_policy=policy, **engine_kw)
+        _zero_fused_launches()
+        handles = _serve_open_loop(oeng, otrace, otrace.requests(device=dev))
+        sync()
+        launches[f"11c {policy}"] = _fused_launches()
+        check(not on_card
+              or launches[f"11c {policy}"] == _serve_launch_sums(oeng),
+              f"11c {policy}: fused launches {launches[f'11c {policy}']} "
+              f"== the capacity sum")
+        for i, (h, w) in enumerate(zip(handles, want)):
+            check(h.done(), f"11c {policy} request {i} resolved")
+            if h.exception() is None:
+                _serve_same(h.result(), w,
+                            f"11c {policy} request {i} ({w.query})")
+            else:
+                check(isinstance(h.exception(), (Overloaded, DeadlineShed)),
+                      f"11c {policy} request {i}: a typed plane error "
+                      f"({h.exception()!r})")
+        s = oeng.stats
+        n_over = sum(isinstance(h.exception(), Overloaded) for h in handles)
+        n_shed = sum(isinstance(h.exception(), DeadlineShed)
+                     for h in handles)
+        check(s.completed + s.failures + s.shed == s.requests
+              and s.rejected == n_over and s.shed == n_shed
+              and s.failures == 0 and s.requests + s.rejected == SERVE_N
+              and (policy == "hopeless" or s.shed == 0)
+              and s.batches == s.flush_capacity + s.flush_deadline
+              + s.flush_drain + s.flush_retry
+              and all(isinstance(h.exception(), (type(None), PlaneError))
+                      for h in handles),
+              f"11c {policy}: completed + failures + shed == requests "
+              f"({s.as_dict()})")
+        print(f"  11c overload, {cfg.overload_factor} x 11a's warm "
+              f"{warm_rps:.3f} requests/s, max_queue_depth "
+              f"{cfg.overload_queue_depth}, shed_policy {policy!r}: "
+              f"{s.completed} completed == submit_many, {s.rejected} "
+              f"rejected (Overloaded), {s.shed} shed (DeadlineShed), "
+              f"{s.failures} failed; {s.batches} executions (capacity "
+              f"{s.flush_capacity}, deadline {s.flush_deadline}, drain "
+              f"{s.flush_drain}); deadline hit rate "
+              f"{s.deadline_hit_rate:.3f}; {_latency_text(oeng)} ({smi})")
+    del want, reqs, handles
+    phase("serve 11c: overload", t0)
+
+    # 11d. the distributed engine on one NCCL rank at 512^3 -----------------
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        shape = tuple(host["order"].shape)
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(os.path.join(
+                                    tmp, "store_11d"), 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_dpc_mesh((1, 1, 1), device=dev)
+            field = perlin_noise(shape, frequency=0.1, seed=SEED, device=dev)
+            thr = np.array([quantile(field, qq) for qq in SWEEP_QS],
+                           np.float32)
+            base = dict(backend="distributed", mesh=mesh, grid_shape=shape,
+                        connectivity=conn)
+            dreqs = [TopologyRequest("ms", order=host["order"].to(dev),
+                                     tag="ms", **base),
+                     TopologyRequest("threshold_sweep", field=field,
+                                     thresholds=thr, tag="sweep", **base)]
+            deng = TopologyEngine(max_batch=cfg.max_batch, device=dev)
+            sync()
+            peak_gb(reset=True)
+            _zero_fused_launches()
+            got = deng.submit_batch(dreqs)
+            sync()
+            launches["11d"] = _fused_launches()
+            peak = peak_gb()
+            check(not on_card or launches["11d"] == {
+                "manifold": 2, "cc": len(SWEEP_QS)},
+                  f"11d: one batched call a bucket, one launch a slot "
+                  f"({launches['11d']})")
+            ds = deng.stats
+            check(ds.batches == 2 and ds.padded_cells == ds.real_cells,
+                  f"11d: two buckets, no dummy slot ({ds.as_dict()})")
+            for g, r in zip(got, dreqs):
+                _serve_same(g, submit(r), f"11d {r.tag}")
+            for k in ("descending", "ascending", "segmentation"):
+                check(torch.equal(getattr(got[0], k).cpu(), host[k]),
+                      f"11d ms {k} == phase 4's pure ms query")
+            del got
+            if on_card:
+                eng_ms = event_ms(lambda: deng.submit_batch(dreqs), 3)
+                fac_ms = event_ms(lambda: [submit(r) for r in dreqs], 3)
+                print(f"  11d one NCCL rank, {shape} (a 514^3 extended "
+                      f"block): one submit_batch of an ms and a K = "
+                      f"{len(SWEEP_QS)} sweep (buckets of 2 manifold and "
+                      f"{len(SWEEP_QS)} cc slots) {eng_ms:.3f} ms; the "
+                      f"facade's two sequential calls (9a's routes) "
+                      f"{fac_ms:.3f} ms (warm, median of 3, CUDA events); "
+                      f"peak device memory {peak:.3f} GB ({smi})")
+            print(f"  11d: labels and stats == the facade's, ms == phase "
+                  f"4's pure query; fused launches {launches['11d']}")
+            del field, dreqs
+        finally:
+            dist.destroy_process_group()
+        if on_card:
+            torch.cuda.empty_cache()
+        phase("serve 11d: distributed engine, one rank, NCCL, 512^3", t0)
+
+        # 11e. eight gloo ranks sharing the card ---------------------------
+        t0 = time.perf_counter()
+        mp.spawn(_rank_11e, args=(os.path.join(tmp, "store_11e"), tmp,
+                                  dev.type), nprocs=8, join=True)
+        outs = []
+        for rank in range(8):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        launches["11e"] = {k: sum(o["launches"][k] for o in outs)
+                           for k in ("manifold", "cc")}
+        if on_card:
+            fused["11e"] = {k: (max(o["fused_err"][k] for o in outs), None)
+                            for k in ("manifold", "cc")}
+        check(not on_card or launches["11e"] == {"manifold": 8 * 16,
+                                                 "cc": 8 * 16},
+              f"11e: one launch a slot a rank ({launches['11e']})")
+        print(f"  11e {RAGGED} over (2, 2, 2), connectivity 6 and 26, both "
+              f"table modes: the sync engine == each rank's facade (labels "
+              f"and stats), and the async engine (VirtualClock) at "
+              f"connectivity 6, {MODES[0]}, where a table_max_iter=1 "
+              f"request fails alone on every rank; the MonotonicClock guard "
+              f"raises ValueError; sync fused launches {launches['11e']}; "
+              f"ghost-masked kernel == plain on each rank's real and dummy "
+              f"block, max err {fused.get('11e')}")
+        phase("serve 11e: distributed engine, eight ranks, gloo", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, fused
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2030,15 +2573,21 @@ def main():
 
     # 9. the distributed grid backend ---------------------------------------
     dist_launches, dist_fused = distributed_path(smi, host, conn, q, dev)
-    del host
 
     # 10. the distributed graph backend -------------------------------------
     dist_launches.update(distributed_graph_path(smi, dist_graph_in, dev))
     del dist_graph_in
+
+    # 11. the serving engine ------------------------------------------------
+    serve_launches, serve_fused = serve_path(smi, host, conn, dev)
+    del host
+    dist_fused.update({f"serve {k}": v for k, v in serve_fused.items()})
     for row in kernels[:2]:
         mode = row["name"].split("/")[1]
         row["launches_distributed"] = {k: v[mode]
                                        for k, v in dist_launches.items()}
+        row["launches_serve"] = {k: v[mode]
+                                 for k, v in serve_launches.items()}
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             v[mode][0] for v in dist_fused.values() if mode in v])
 

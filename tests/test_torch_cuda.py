@@ -14,6 +14,8 @@ Sq = Sk = 1024 case.  This file imports neither jax nor
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -706,5 +708,126 @@ def test_distributed_graph_one_part_nccl_equals_pure(cuda, tmp_path):
                 assert torch.equal(got[b], want[b]), (mode, b)
             assert stats.comm_phases.tolist() == [0, 0]
         assert dict(kmod.launches) == before
+    finally:
+        dist.destroy_process_group()
+
+
+def _capacity_sum(engine, kind):
+    """Slots a pure grid executable of `kind` ran, over every execution:
+    the fused kernel's launches on that path (one a slot, dummies too)."""
+    return sum(key[-2] * runs for key, runs in
+               engine.cache_info()["runs_per_executable"].items()
+               if key[:3] == ("grid", "pure", kind))
+
+
+def _serve_equal(got, want):
+    assert (got.query, got.tag) == (want.query, want.tag)
+    for f in ("labels", "ascending", "descending", "segmentation"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def test_serve_engine_on_card_equals_submit_many(cuda):
+    """The serving engine at the serve config's smoke widths on the card:
+    results == `submit_many` bit for bit, on the card; the fused kernel
+    launches once a grid slot (the capacity sum of the grid buckets), and
+    a replay builds nothing."""
+    from repro_torch.configs.serve_topology import smoke_config
+    from repro_torch.serve import TopologyEngine
+    from repro_torch.serve.workload import synthetic_requests
+    from repro_torch.topology import submit_many
+    cfg = smoke_config()
+    reqs = synthetic_requests(24, cfg.shapes, cfg.mix, cfg.connectivity,
+                              cfg.sweep_k, seed=0)
+    eng = TopologyEngine(min_extent=cfg.min_extent, max_batch=cfg.max_batch,
+                         slot_cost_cells=cfg.slot_cost_cells)
+    assert eng.device.type == "cuda"
+    for _ in range(2):
+        before = dict(kmod.launches)
+        got = eng.submit_batch(reqs)
+        torch.cuda.synchronize()
+        launched = {k: kmod.launches[k] - before[k] for k in before}
+        if _ == 0:
+            misses = eng.stats.cache_misses
+    assert eng.stats.cache_misses == misses
+    half = {k: _capacity_sum(eng, k) for k in ("manifold", "cc")}
+    assert all(v % 2 == 0 for v in half.values())
+    assert launched == {k: v // 2 for k, v in half.items()}, launched
+    for g, w in zip(got, submit_many(reqs)):
+        _serve_equal(g, w)
+
+
+def test_serve_async_engine_on_card_equals_submit_many(cuda):
+    """The async plane on a VirtualClock over a smoke-config trace, the
+    execution time charged to the clock: every handle == `submit_many`,
+    the flush reasons sum to the executions."""
+    from repro_torch.configs.serve_topology import smoke_config
+    from repro_torch.serve import AsyncTopologyEngine, VirtualClock
+    from repro_torch.serve.workload import synthetic_trace
+    from repro_torch.topology import submit_many
+    cfg = smoke_config()
+    trace = synthetic_trace(24, cfg.shapes, cfg.mix, cfg.connectivity,
+                            cfg.sweep_k, seed=1, rate=cfg.rate,
+                            deadline_slack=cfg.deadline_slack)
+    reqs = trace.requests()
+    eng = AsyncTopologyEngine(min_extent=cfg.min_extent,
+                              max_batch=cfg.max_batch, clock=VirtualClock(),
+                              charge_execution_time=True)
+    handles = []
+    for req, (t, dl) in zip(reqs, trace.arrivals):
+        if t > eng.clock.now():
+            eng.advance(t - eng.clock.now())
+        handles.append(eng.submit(req, deadline=dl))
+    eng.drain()
+    s = eng.stats
+    assert s.completed == len(reqs) and s.failures == 0
+    assert s.batches == (s.flush_capacity + s.flush_deadline + s.flush_drain
+                         + s.flush_retry)
+    for h, w in zip(handles, submit_many(reqs)):
+        _serve_equal(h.result(), w)
+
+
+def test_serve_distributed_engine_one_rank_nccl(cuda, tmp_path):
+    """The engine's distributed buckets on a 1-rank NCCL group at 32^3: an
+    ms and a three-threshold sweep in one `submit_batch` == the facade's
+    distributed routes (labels and stats) and the pure routes; one batched
+    call a bucket, one fused launch a slot: 2 manifold, and 3 cc masks at
+    capacity 4 (one inert dummy block)."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import make_dpc_mesh
+    from repro_torch.core.ids import compute_order
+    from repro_torch.serve import TopologyEngine
+    from repro_torch.topology import TopologyRequest, submit
+    shape = (32, 32, 32)
+    field = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+    thr = np.quantile(field.cpu().numpy(), [0.5, 0.7, 0.9]).astype(
+        np.float32)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_dpc_mesh((1, 1, 1), device=cuda)
+        base = dict(backend="distributed", mesh=mesh, grid_shape=shape,
+                    connectivity=6)
+        reqs = [TopologyRequest("ms", order=compute_order(field), tag="ms",
+                                **base),
+                TopologyRequest("threshold_sweep", field=field,
+                                thresholds=thr, tag="sw", **base)]
+        eng = TopologyEngine()
+        before = dict(kmod.launches)
+        got = eng.submit_batch(reqs)
+        assert {k: kmod.launches[k] - before[k] for k in before} == \
+            {"manifold": 2, "cc": 4}
+        assert eng.stats.batches == 2
+        assert eng.stats.padded_cells == (2 + 4) * 32 ** 3
+        for g, req in zip(got, reqs):
+            want = submit(req)
+            _serve_equal(g, want)
+            assert g.stats == want.stats
+            pure = submit(dataclasses.replace(req, backend="pure", mesh=None,
+                                              grid_shape=None))
+            _serve_equal(dataclasses.replace(g, stats=None), pure)
     finally:
         dist.destroy_process_group()
