@@ -120,6 +120,29 @@ seconds:
      `launches_serve`, and the errors of 11a's and 11e's comparisons into
      its `max_abs_err`.
 
+ 12. LM serving (`repro_torch.models.lm`, `repro_torch.launch.serve`):
+     llama3.2-1b's `full_config()` in bf16 (1,498,482,688 parameters,
+     weights drawn on the card from a seed), 4 prompts of 32,768
+     (prefill_32k's sequence, batch cut from 32 to 4) and 16 greedy tokens
+     through the launcher's LM mode (a warm-up and three timed
+     generations), flash_attention counts set to 0 just before and read
+     just after (once a layer a prefill); then one prefill and one
+     decode step, each profiled, counted apart (16 and 0 launches), layer 0's
+     kernel launch at the served shape held to the plain version, and the
+     whole model at batch 1 x 2048 with the kernel held to the same model
+     with the plain attention (and both to the fp32 model): logits and
+     greedy tokens;
+ 13. BST serving (`repro_torch.models.bst`): `configs/bst.py`'s
+     `full_config()` in fp32 (4,194,304 item rows), `forward` at serve_p99
+     (512) and serve_bulk (262,144), two segment_bag launches each, bags
+     and logits held to the model with the bags' plain version;
+     `retrieval_step` at retrieval_cand (1 x 1,000,000, top 100, no bag
+     launch), ids held to a top-k on the host under JAX's tie rule; warm
+     times and peaks.  Then the launcher's topology mode at its smoke
+     config, its engine stats on the card equal to the CPU's.  The
+     attention and bag rows of the kernels line carry `launches_lm` and
+     `launches_bst`.
+
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
 the exit code is not 0.
@@ -212,6 +235,15 @@ SERVE_PROFILED = 16
 SERVE_SEED = 0
 SERVE_E_SEED = 11
 SERVE_E_QS = (0.5, 0.7, 0.9)
+# phase 12: llama3.2-1b's full config in bf16 at prefill_32k's sequence,
+# batch cut from 32 to 4 (the run's time), LM_GEN greedy tokens; the whole
+# model held to the plain attention at batch 1 x LM_CHECK_PROMPT
+LM_ARCH, LM_SEED = "llama3.2-1b", 0
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_PROMPT = 4, 32_768, 16, 2048
+# phase 13: BST logits against the bags' plain version (rtol, atol): the
+# bags agree within 1e-5 (fp32 sums in another order), and the MLP's
+# layers, scaled 1/sqrt(fan-in), keep a perturbation's size
+BST_LOGIT_TOL = (1e-4, 1e-5)
 
 
 def phase(name, t0):
@@ -357,6 +389,19 @@ def ms_text(ms, places=3):
     return "not measured" if ms is None else f"{ms:.{places}f} ms"
 
 
+def limit_share(got, want, tol):
+    """The largest |got - want| / (atol + rtol |want|) (above 1 fails a
+    closeness check) and the index of its element; tol: one number for rtol
+    and atol, or an (rtol, atol) pair."""
+    rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+    want = want.float()
+    share = (got.float() - want).abs_().div_(want.abs().mul_(rtol)
+                                             .add_(atol))
+    at = int(share.argmax())
+    return float(share.reshape(-1)[at]), [
+        int(i) for i in np.unravel_index(at, tuple(share.shape))]
+
+
 def standalone_kernels(order, conn, smi):
     """Phase 7: the four stand-alone kernels behind `repro_torch.kernels.ops`
     (`order` is the grid_512 order field of the main path).  Returns their
@@ -381,17 +426,6 @@ def standalone_kernels(order, conn, smi):
         check(got.dtype == want.dtype and got.shape == want.shape and e == 0,
               f"kernel == plain: {what} (max err {e})")
         return e
-
-    def limit_share(got, want, tol):
-        """The largest |got - want| / (atol + rtol |want|) (above 1 fails
-        `close`) and the index of its element."""
-        rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
-        want = want.float()
-        share = (got.float() - want).abs_().div_(want.abs().mul_(rtol)
-                                                 .add_(atol))
-        at = int(share.argmax())
-        return float(share.reshape(-1)[at]), [
-            int(i) for i in np.unravel_index(at, tuple(share.shape))]
 
     def close(got, want, tol, what):
         """tol: one number for rtol and atol, or an (rtol, atol) pair."""
@@ -2301,6 +2335,432 @@ def serve_path(smi, host, conn, dev):
     return launches, fused
 
 
+def _serve_main(argv):
+    """`repro_torch.launch.serve.main(argv)`, its printed lines echoed after
+    it returns: (return value, printed text)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = serve.main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"  {line[:400]}")
+    return ret, text
+
+
+def _json_after(text, prefix):
+    """The JSON object that follows `prefix` on the one line starting so."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    check(len(lines) == 1, f"one {prefix!r} line in the launcher's output")
+    return json.loads(lines[0][len(prefix):])
+
+
+def lm_path(smi, dev, smoke=False):
+    """Phase 12: LM serving, llama3.2-1b's `full_config()` in bf16 with
+    weights drawn on the card from a seed.  12a the launcher's LM mode
+    (`repro_torch.launch.serve.main`, a warm-up and LM_RUNS timed
+    generations of LM_BATCH prompts of LM_PROMPT, LM_GEN greedy tokens),
+    the flash_attention counts set to 0 just before and read just after;
+    12b one profiled prefill and one profiled decode step on the same
+    weights and prompts, launches counted apart, and layer 0's kernel
+    launch at the served shape held to the plain version; 12c at batch 1 x
+    LM_CHECK_PROMPT, every layer's kernel launch on the served model's own
+    inputs held to the plain version (the gate), then, as a secondary
+    check, the whole model with the kernel against the same model with
+    attention through the plain version, both against the fp32 model.
+    `smoke` runs the smoke config at small sizes (on `dev` = cpu: a
+    rehearsal, no launch counted, nothing held to the kernel).  Returns
+    (the kernel's launches by sub-phase, max abs error of the launches
+    held to plain)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash_mod, ref
+    from repro_torch.models import lm
+    from repro_torch.nn.core import rms_norm
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mod = configs.get(LM_ARCH)
+    cfg = mod.smoke_config() if smoke else mod.full_config()
+    batch, prompt, gen, check_prompt = ((2, 64, 4, 32) if smoke else
+                                        (LM_BATCH, LM_PROMPT, LM_GEN,
+                                         LM_CHECK_PROMPT))
+    key = flash_mod.route(cfg.compute_dtype, cfg.head_dim)
+    print(f"  {cfg.name}: {cfg.n_params()} parameters, "
+          f"{cfg.n_params() * cfg.param_dtype.itemsize / 1e9:.3f} GB in "
+          f"{cfg.param_dtype}; KV cache of {batch} x {prompt + gen} "
+          f"positions {2 * cfg.n_layers * batch * cfg.n_kv_heads * (prompt + gen) * cfg.head_dim * cfg.compute_dtype.itemsize / 1e9:.3f} GB")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def zero():
+        for k in flash_mod.launches:
+            flash_mod.launches[k] = 0
+
+    # 12a. the launcher, counts set to 0 just before and read just after --
+    argv = ["--arch", LM_ARCH, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen", str(gen), "--seed", str(LM_SEED),
+            "--device", str(dev)] + (["--smoke"] if smoke else [])
+    zero()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tps, text = _serve_main(argv)
+    sync()
+    launches = {"launcher": dict(flash_mod.launches)}
+    stats = _json_after(text, "[serve] lm stats:")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    want = {k: cfg.n_layers * stats["prefills"] * (k == key) * on_card
+            for k in flash_mod.launches}
+    print(f"  12a launcher: flash_attention launches {launches['launcher']} "
+          f"for {stats['prefills']} prefills of {cfg.n_layers} layers")
+    check(launches["launcher"] == want, f"the launcher's prefills launched "
+          f"the {key} kernel once a layer and nothing else: "
+          f"{launches['launcher']} (want {want})")
+    cont = torch.tensor(stats["continuation"])
+    check(tuple(cont.shape) == (batch, gen) and bool((cont >= 0).all())
+          and bool((cont < cfg.vocab).all()), "the continuation is "
+          f"{batch} x {gen} ids in [0, vocab)")
+    numbers = {"prefill_ms": stats["prefill_ms"],
+               "prefill_ms_median": statistics.median(stats["prefill_ms"]),
+               "decode_ms_per_token": stats["decode_ms_per_step"],
+               "decode_ms_per_token_median": statistics.median(
+                   stats["decode_ms_per_step"]),
+               "tokens_per_s": tps, "peak_GB": peak}
+    print(f"  12a {cfg.name} {str(cfg.compute_dtype)[6:]} serving, batch {batch} x prompt {prompt}, "
+          f"{gen} greedy tokens: prefill {numbers['prefill_ms_median']:.3f} "
+          f"ms (median of {len(stats['prefill_ms'])}: {stats['prefill_ms']}),"
+          f" decode {numbers['decode_ms_per_token_median']:.3f} ms a token "
+          f"step ({stats['decode_ms_per_step']}), {tps:.1f} tokens/s, peak "
+          f"device memory {peak} GB ({smi})")
+    phase("LM serving 12a: the launcher", t0)
+
+    # 12b. one prefill and one decode step, counted apart; layer 0 --------
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = lm.init_params(g, cfg)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=dev)
+    zero()
+    out = {}
+
+    def run_prefill():
+        out["prefill"] = lm.prefill(params, prompts, cfg,
+                                    max_len=prompt + gen)
+
+    if on_card:
+        profile(run_prefill, f"12b one prefill, batch {batch} x {prompt}",
+                top=8)
+    else:
+        run_prefill()
+    logits, cache = out.pop("prefill")
+    sync()
+    launches["prefill"] = dict(flash_mod.launches)
+    nxt = logits.argmax(-1)[:, None]
+    check(torch.equal(nxt[:, 0].cpu(), cont[:, 0]), "the prefill's greedy "
+          "tokens == the launcher's first tokens (same seed)")
+    zero()
+    if on_card:
+        rows = profile(lambda: lm.decode_step(params, cache, nxt, cfg),
+                       f"12b one decode step, batch {batch}, cache "
+                       f"{prompt + gen}")
+        busy = sum(r[1] for r in rows)
+        numbers["decode_profile_busy_ms"] = busy
+    else:
+        lm.decode_step(params, cache, nxt, cfg)
+    sync()
+    launches["decode_step"] = dict(flash_mod.launches)
+    check(launches["prefill"] == {k: cfg.n_layers * (k == key) * on_card
+                                  for k in flash_mod.launches}
+          and not any(launches["decode_step"].values()),
+          f"a prefill launches the kernel once a layer, a decode step never: "
+          f"{launches['prefill']}, {launches['decode_step']}")
+    print(f"  12b flash_attention launches: prefill {launches['prefill']}, "
+          f"decode step {launches['decode_step']}")
+    del cache, logits
+    err = None
+    if on_card:
+        lp = params["layers"][0]
+        x = params["embed"][prompts]
+        pos = torch.arange(prompt, device=dev).expand(batch, prompt)
+        q, k, v = lm.attention_inputs(rms_norm(x, lp["ln1"]), lp, cfg, pos)
+        del x
+        got = flash_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True)
+        want = ref.flash_attention_kernel_ref(q, k, v, causal=True,
+                                              block_k=512)
+        sync()
+        share, at = limit_share(got, want, ATTN_BF16_FULL)
+        err = float((got.float() - want.float()).abs().max())
+        check(share <= 1 and not torch.isnan(got).any(),
+              f"layer 0's flash_attention launch at {tuple(q.shape)} == "
+              f"plain within rtol {ATTN_BF16_FULL[0]}, atol "
+              f"{ATTN_BF16_FULL[1]} (worst element at {share} of its limit, "
+              f"{at}; max abs err {err})")
+        print(f"  12b layer 0 at the served shape q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}: kernel == plain within rtol "
+              f"{ATTN_BF16_FULL[0]} / atol {ATTN_BF16_FULL[1]}, worst "
+              f"element at {share:.4f} of its limit, max abs err {err}")
+        del q, k, v, got, want
+    del prompts
+    phase("LM serving 12b: prefill, decode step, layer 0", t0)
+
+    # 12c. every layer's launch against plain on the model's own inputs --
+    t0 = time.perf_counter()
+    tok = torch.randint(0, cfg.vocab, (1, check_prompt), generator=g,
+                        device=dev)
+    if on_card:
+        x = lm._embed(params["embed"], tok, cfg.compute_dtype)
+        pos = torch.arange(check_prompt, device=dev)[None]
+        shares = []
+        for i, lp in enumerate(params["layers"]):
+            q, k, v = lm.attention_inputs(rms_norm(x, lp["ln1"]), lp, cfg,
+                                          pos)
+            got = flash_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=True)
+            want = ref.flash_attention_kernel_ref(q, k, v, causal=True,
+                                                  block_k=512)
+            share, at = limit_share(got, want, ATTN_BF16_FULL)
+            e = float((got.float() - want.float()).abs().max())
+            err = max(err, e)
+            check(share <= 1 and not torch.isnan(got).any(),
+                  f"layer {i}'s flash_attention launch at {tuple(q.shape)} "
+                  f"== plain within rtol {ATTN_BF16_FULL[0]}, atol "
+                  f"{ATTN_BF16_FULL[1]} (worst element at {share} of its "
+                  f"limit, {at}; max abs err {e})")
+            shares.append(round(share, 4))
+            x = lm._layer(x, lp, cfg, pos)[0]   # the served layer, kernel
+        del x, q, k, v, got, want
+        print(f"  12c every layer's launch at batch 1 x {check_prompt} "
+              f"on the served model's inputs: kernel == plain within rtol "
+              f"{ATTN_BF16_FULL[0]} / atol {ATTN_BF16_FULL[1]}; worst "
+              f"element's share of its limit by layer {shares}; max abs err "
+              f"{err}")
+        numbers["layer_limit_shares"] = shares
+
+    # the whole model, kernel against plain, both against fp32 (secondary:
+    # with random weights attention is near uniform and barely moves the
+    # logits, so this bounds the damage end to end but is not the gate)
+    steps = 8
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items() if k != "layers"}
+    p32["layers"] = [{k: v.float() for k, v in lp.items()}
+                     for lp in params["layers"]]
+    l32, _ = lm.prefill(p32, tok, cfg32, impl="plain")
+    del p32
+
+    def greedy(impl):
+        logits, cache = lm.prefill(params, tok, cfg, max_len=check_prompt
+                                   + steps, impl=impl)
+        out = [logits.float()]
+        for _ in range(steps - 1):
+            logits, cache = lm.decode_step(params, cache,
+                                           logits.argmax(-1)[:, None], cfg)
+            out.append(logits.float())
+        return torch.cat(out)                    # (steps, V)
+
+    kern, plain = greedy("auto"), greedy("plain")
+    sync()
+    e_plain = float((plain[0] - l32[0]).abs().max())
+    e_kern = float((kern[0] - l32[0]).abs().max())
+    diff = float((kern[0] - plain[0]).abs().max())
+    # the plain bf16 model's distance from the fp32 one is bf16's own
+    # rounding on this input; two bf16 paths that each round as much may
+    # differ by up to twice that, and a kernel that dropped or misweighted
+    # keys would move the logits by more
+    tol = 2 * e_plain
+    print(f"  12c batch 1 x prompt {check_prompt}, last-token logits: kernel "
+          f"vs plain max abs diff {diff}; against the fp32 model (same "
+          f"weights, plain attention): plain {e_plain}, kernel {e_kern}; "
+          f"tolerance 2 x plain's = {tol}")
+    check(diff <= tol, f"the bf16 model with the kernel stays within twice "
+          f"the plain bf16 model's own distance from fp32 of it: {diff} <= "
+          f"{tol}")
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    compared = 0
+    for i in range(steps):
+        same = bool(kern[i].argmax() == plain[i].argmax())
+        if not same:
+            check(float(margin[i]) <= tol, f"greedy token {i} differs where "
+                  f"the plain path's top-2 margin {float(margin[i])} > {tol}")
+            break                       # the two continuations part here
+        compared += 1
+    print(f"  12c greedy tokens: kernel == plain for the first {compared} of "
+          f"{steps} steps (top-2 margins {margin.tolist()}); tokens are "
+          f"required equal where the margin exceeds {tol}")
+    numbers.update(logits_diff=diff, logits_vs_fp32_plain=e_plain,
+                   logits_vs_fp32_kernel=e_kern, greedy_equal_steps=compared)
+    for k, v in numbers.items():
+        print(f"  {k}: {v}")
+    del params, kern, plain, l32
+    phase("LM serving 12c: every layer's launch, whole model", t0)
+    return launches, err
+
+
+def bst_path(smi, dev, smoke=False):
+    """Phase 13: BST serving, `configs/bst.py`'s `full_config()` in fp32,
+    weights drawn on the card: `forward` at serve_p99 and serve_bulk and
+    `retrieval_step` at retrieval_cand, batches from `data/recsys.py` (seed
+    0).  Each forward's segment_bag counts are set to 0 just before and
+    read just after (2 a forward, 0 in retrieval); its bags and logits are
+    held to the model with the bags' plain version, its retrieval ids to
+    an independent top-k under JAX's tie rule.  Warm medians of 3, peak
+    device memory.  `smoke` runs the smoke config (on a cpu `dev`: a
+    rehearsal).  Returns (launches by shape, max abs error of the bags)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import recsys
+    from repro_torch.kernels import segment_bag as bag_mod
+    from repro_torch.models import bst
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mod = configs.get("bst")
+    cfg = mod.smoke_config() if smoke else mod.full_config()
+    shapes = mod.SMOKE_SHAPES if smoke else mod.SHAPES
+    params = bst.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    print(f"  {cfg.name} tables (fp32): items {tuple(params['item_embed'].shape)}"
+          f", profile {tuple(params['profile_embed'].shape)}, multihot "
+          f"{tuple(params['multihot_embed'].shape)}; "
+          f"{sum(t.numel() for t in params.values() if torch.is_tensor(t)) * 4 / 1e9:.3f} GB")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        return event_ms(fn, 3) if on_card else None
+
+    launches, err, numbers = {}, 0.0, {}
+    for shape in ("serve_p99", "serve_bulk"):
+        n = shapes[shape]["batch"]
+        b = recsys.to_tensors(recsys.bst_batch(cfg, n, seed=0), dev)
+        for key in bag_mod.launches:
+            bag_mod.launches[key] = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        logits = bst.forward(params, b, cfg)
+        sync()
+        launches[shape] = dict(bag_mod.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        check(launches[shape] == {"float32": 2 * on_card, "bfloat16": 0},
+              f"BST forward {shape} launched segment_bag twice (f32): "
+              f"{launches[shape]}")
+        # the profile half of the user tower: the gathers and the two bags
+        bags = bst.user_tower(params, b, cfg)[1]
+        bags_plain = bst.user_tower(params, b, cfg, impl="plain")[1]
+        plain = bst.forward(params, b, cfg, impl="plain")
+        sync()
+        e_bag = float((bags - bags_plain).abs().max())
+        e_log = float((logits - plain).abs().max())
+        err = max(err, e_bag)
+        check(torch.allclose(bags, bags_plain, rtol=TOL["float32"]["bag"],
+                             atol=TOL["float32"]["bag"])
+              and torch.allclose(logits, plain, rtol=BST_LOGIT_TOL[0],
+                                 atol=BST_LOGIT_TOL[1])
+              and bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (n,),
+              f"BST {shape}: bags within 1e-5 and logits within rtol "
+              f"{BST_LOGIT_TOL[0]} / atol {BST_LOGIT_TOL[1]} of the plain "
+              f"bags' model (bags {e_bag}, logits {e_log})")
+        ms = timed(lambda: bst.forward(params, b, cfg))
+        plain_ms = timed(lambda: bst.forward(params, b, cfg, impl="plain"))
+        numbers[shape] = {"batch": n, "ms": ms, "plain_bags_ms": plain_ms,
+                          "peak_GB": peak, "bag_err": e_bag,
+                          "logit_err": e_log}
+        print(f"  13 forward {shape} (batch {n}): {ms} ms (warm, median of "
+              f"3), with the bags' plain version {plain_ms} ms; peak "
+              f"{peak} GB; segment_bag launches {launches[shape]}; bags "
+              f"max abs err {e_bag}, logits {e_log} ({smi})")
+        del b, logits, plain, bags, bags_plain
+
+    shape = shapes["retrieval_cand"]
+    r = recsys.to_tensors(recsys.retrieval_batch(
+        cfg, shape["batch"], shape["n_candidates"], seed=0), dev)
+    for key in bag_mod.launches:
+        bag_mod.launches[key] = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    vals, ids = bst.retrieval_step(params, r, cfg)
+    sync()
+    launches["retrieval_cand"] = dict(bag_mod.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    check(not any(launches["retrieval_cand"].values()),
+          "retrieval launches no bag kernel (it reads the sequence tower "
+          "only)")
+    # (1) the ranking: the card's fp32 scores of the same pooled vector
+    # (`@` on the card), ranked on the host by (-score, index), JAX's
+    # lax.top_k order; ids and scores must equal retrieval_step's exactly
+    top = vals.shape[1]
+    cand = r["candidates"][0].long()
+    seq_r = bst.user_tower(params, r, cfg)[0].reshape(
+        1, cfg.seq_len + 1, cfg.embed_dim)
+    items = params["item_embed"][cand]
+    s_np = (items @ seq_r.mean(1)[0]).cpu().numpy()
+    order = np.lexsort((np.arange(s_np.size), -s_np))[:top]
+    check(np.array_equal(ids[0].cpu().numpy(),
+                         r["candidates"][0].cpu().numpy()[order])
+          and np.array_equal(vals[0].cpu().numpy(), s_np[order]),
+          "retrieval ids == the host's (score desc, index asc) top-k of the "
+          "same scores")
+    # (2) the scores: the mean over the pooled sequence and the dot with
+    # the candidates again on the host in float64, from the same tower
+    # output; each returned score within 1e-5 of the largest |item| . |u|
+    # of its float64 value (fp32 rounds a mean of 21 and a dot of 32 to a
+    # few ulps of that), and the k-th score within that of float64's k-th
+    # best, so no candidate that scores higher by more was left out
+    u64 = seq_r.cpu().double().mean(1)[0]
+    items64 = items.cpu().double()
+    s64 = (items64 @ u64).numpy()
+    score_tol = 1e-5 * float((items64.abs() @ u64.abs()).max())
+    v_np = vals[0].cpu().double().numpy()
+    e_score = float(np.abs(v_np - s64[order]).max())
+    kth = float(np.sort(s64)[::-1][top - 1])
+    check(e_score <= score_tol and abs(v_np[-1] - kth) <= score_tol,
+          f"retrieval scores within {score_tol} of float64 (max err "
+          f"{e_score}); the k-th {v_np[-1]} against float64's k-th best "
+          f"{kth}")
+    del items, items64, seq_r
+    n_dup = int(cand.numel() - torch.unique(cand).numel())
+    ties = int((vals[0, 1:] == vals[0, :-1]).sum())
+    ms = timed(lambda: bst.retrieval_step(params, r, cfg))
+    numbers["retrieval_cand"] = {"candidates": int(cand.numel()), "ms": ms,
+                                 "peak_GB": peak, "duplicates": n_dup,
+                                 "ties_in_top_k": ties,
+                                 "score_err_vs_float64": e_score,
+                                 "score_tol": score_tol}
+    print(f"  13 retrieval_step {shape['batch']} x {shape['n_candidates']}, "
+          f"top {vals.shape[1]}: {ms} ms (warm, median of 3); peak {peak} "
+          f"GB; {n_dup} duplicate candidates, {ties} equal neighbours in "
+          f"the top k; scores within {e_score} of float64 (limit "
+          f"{score_tol}); segment_bag launches {launches['retrieval_cand']} "
+          f"({smi})")
+    del params, r, vals, ids
+    phase("BST serving", t0)
+    return launches, err
+
+
+def launcher_topology(dev):
+    """The launcher's topology mode at its smoke config, on the card and on
+    the CPU: the engine stats printed must be equal (the CPU tests hold the
+    CPU's to the JAX package's launcher)."""
+    t0 = time.perf_counter()
+    argv = ["--topology", "--smoke", "--requests", "6", "--repeat", "2"]
+    rate, text = _serve_main(argv + ["--device", str(dev)])
+    _, cpu_text = _serve_main(argv + ["--device", "cpu"])
+    prefix = "[serve-topology] engine stats:"
+    got, want = _json_after(text, prefix), _json_after(cpu_text, prefix)
+    check(got == want and rate > 0, f"the launcher's topology stats on "
+          f"{dev} == on the CPU: {got} vs {want}")
+    phase("launcher: topology mode", t0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2590,6 +3050,20 @@ def main():
                                  for k, v in serve_launches.items()}
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             v[mode][0] for v in dist_fused.values() if mode in v])
+
+    # 12. LM serving, 13. BST serving, and the launcher's topology mode --
+    lm_launches, lm_err = lm_path(smi, dev)
+    bst_launches, bst_err = bst_path(smi, dev)
+    launcher_topology(dev)
+    for row in kernels:
+        if row["name"] == "flash_attention/bfloat16":
+            row["launches_lm"] = {k: v["bfloat16"]
+                                  for k, v in lm_launches.items()}
+            row["max_abs_err"] = max(row["max_abs_err"], lm_err)
+        if row["name"] == "segment_bag/float32":
+            row["launches_bst"] = {k: v["float32"]
+                                   for k, v in bst_launches.items()}
+            row["max_abs_err"] = max(row["max_abs_err"], bst_err)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,12 @@ Every Pallas kernel of `repro` has a CUDA C++ counterpart for Hopper behind
 `block_pathcompress`, `flash_attention`, `embedding_bag`): it runs on CUDA
 tensors, and its plain PyTorch version on CPU tensors.  Labels are
 bit-identical to the JAX package on the same inputs.
+
+The serving half of the LM and recsys substrate sits beside them: the dense
+decoder-only LM (`models.lm`: prefill through the `flash_attention` kernel,
+KV-cache decode), BST (`models.bst`: multi-hot bags through the
+`segment_bag` kernel, retrieval), their configs (`configs.get`) and the
+launcher `launch.serve`.
 """
 from ._device import resolve_device
 

@@ -1,4 +1,54 @@
-"""Workload configurations of the port (copies of `repro/configs`'s, so the
-port reads no module of the JAX package): the paper's structured-grid
-workload, `dpc_grid`, its edge-list one, `dpc_graph`, and the serving
-layer's, `serve_topology` (`repro_torch.serve`)."""
+"""Configurations of the port (copies of `repro/configs`'s, so the port reads
+no module of the JAX package): the paper's structured-grid workload,
+`dpc_grid`, its edge-list one, `dpc_graph`, the serving layer's,
+`serve_topology` (`repro_torch.serve`), the dense LMs (`llama3_2_1b`,
+`stablelm_12b`, `minitron_8b`, `repro_torch.models.lm`) and BST (`bst`,
+`repro_torch.models.bst`).  Each arch module exposes FAMILY, full_config(),
+smoke_config() and SHAPES, as in JAX.
+
+`get(arch_id)` takes JAX's ids and aliases; an id whose model is not ported
+yet raises NotImplementedError naming its ROADMAP item.
+"""
+from importlib import import_module
+
+ARCH_IDS = [
+    # LM family (5)
+    "stablelm_12b", "llama3_2_1b", "minitron_8b", "deepseek_moe_16b",
+    "kimi_k2_1t",
+    # GNN (4)
+    "gat_cora", "schnet", "meshgraphnet", "dimenet",
+    # RecSys (1)
+    "bst",
+    # the paper's own workloads (structured grid + unstructured graph)
+    "dpc_grid",
+    "dpc_graph",
+]
+
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
+_ALIAS.update({"llama3.2-1b": "llama3_2_1b", "kimi-k2-1t-a32b": "kimi_k2_1t",
+               "stablelm-12b": "stablelm_12b", "minitron-8b": "minitron_8b",
+               "deepseek-moe-16b": "deepseek_moe_16b",
+               "gat-cora": "gat_cora",
+               # serving-layer config (not an arch; lives outside ARCH_IDS)
+               "serve-topology": "serve_topology"})
+
+# ids of the JAX package whose models the port does not have yet
+NOT_PORTED = {
+    "deepseek_moe_16b": "ROADMAP.md Queue 1 item 5a (the MoE FFN)",
+    "kimi_k2_1t": "ROADMAP.md Queue 1 item 5a (the MoE FFN)",
+    "gat_cora": "ROADMAP.md Queue 1 item 5c (GNN)",
+    "schnet": "ROADMAP.md Queue 1 item 5c (GNN)",
+    "meshgraphnet": "ROADMAP.md Queue 1 item 5c (GNN)",
+    "dimenet": "ROADMAP.md Queue 1 item 5c (GNN)",
+}
+
+
+def get(arch_id: str):
+    """The config module of `arch_id` (an id of ARCH_IDS, an alias such as
+    "llama3.2-1b", or "serve_topology")."""
+    name = _ALIAS.get(arch_id, arch_id)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"config {arch_id!r} is not ported to repro_torch yet: "
+            f"{NOT_PORTED[name]}")
+    return import_module(f"repro_torch.configs.{name}")

@@ -1,7 +1,9 @@
 """Arrays crossing between the JAX package and the port.
 
-The system has no weights: what crosses is a request payload (numpy, or a
-JAX array read back as numpy) and the result arrays.  JAX runs with x64 off
+What crosses is a request payload (numpy, or a JAX array read back as
+numpy), the result arrays, and the LM's and BST's parameters
+(`lm_params_from_jax`, `bst_params_from_jax`), so that both packages can
+run on the same weights.  JAX runs with x64 off
 by default, so every payload it receives is canonicalised to 32 bits.  The
 port applies the same rule, or a float64 field would be ordered in float64
 here and in float32 by JAX, and ties would differ.
@@ -66,3 +68,33 @@ def to_numpy(result):
             f.name: to_numpy(getattr(result, f.name))
             for f in dataclasses.fields(result) if f.init})
     return result
+
+
+def _tree_to_torch(tree, device):
+    """A pytree of dicts and lists of arrays -> the same of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return canonical_tensor(tree, device)
+
+
+def lm_params_from_jax(tree, device=None) -> dict:
+    """The JAX LM's parameter pytree (`repro.models.lm.init_params`, arrays
+    or numpy) -> `repro_torch.models.lm`'s parameters on `device` (default
+    ``"cuda"``): the same tensors, bfloat16 bit for bit, JAX's stacked
+    layers (leading axis L) split into a list of per-layer dicts."""
+    out = _tree_to_torch({k: v for k, v in tree.items() if k != "layers"},
+                         device)
+    stacked = _tree_to_torch(tree["layers"], device)
+    n_layers = len(next(iter(stacked.values())))
+    out["layers"] = [{k: v[i] for k, v in stacked.items()}
+                     for i in range(n_layers)]
+    return out
+
+
+def bst_params_from_jax(tree, device=None) -> dict:
+    """The JAX BST's parameter pytree (`repro.models.bst.init_params`) ->
+    `repro_torch.models.bst`'s parameters on `device` (default ``"cuda"``):
+    the same structure (tables, a list of blocks, a list of MLP layers)."""
+    return _tree_to_torch(tree, device)

@@ -5,6 +5,8 @@ impl="auto": a CUDA tensor runs the CUDA kernel; a CPU tensor runs the
 kernel's plain PyTorch version (`ref.py`), which computes what the kernel
 computes (the JAX package's CPU "auto" runs its jnp oracles instead).
 impl="kernel": the CUDA kernel; raises on a CPU tensor.
+impl="plain": the kernel's plain PyTorch version on any device (no JAX
+counterpart; the models' callers hold the kernel to it).
 impl="ref": the JAX package's `impl="ref"` path, ported as it is.
 Nothing falls back from the kernel to the plain version: on a CUDA tensor
 the kernel runs or the call raises.  The only other fallback is JAX's own:
@@ -24,13 +26,20 @@ from .fused_local_phase import (KERNEL_CONNECTIVITIES,
 from .segment_bag import segment_bag as _bag_kernel
 from .steepest_neighbor import steepest_neighbor as _steepest_kernel
 
-IMPLS = ("auto", "kernel", "ref")
+IMPLS = ("auto", "kernel", "plain", "ref")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be auto|kernel|plain|ref, got {impl!r}")
 
 
 def _use_kernel(impl: str, t: torch.Tensor, name: str) -> bool:
-    """Whether impl "auto" or "kernel" on tensor `t` runs the CUDA kernel
-    (else the kernel's plain version); raises on impl="kernel" with a CPU
-    tensor."""
+    """Whether impl "auto", "kernel" or "plain" on tensor `t` runs the CUDA
+    kernel (else the kernel's plain version); raises on impl="kernel" with
+    a CPU tensor."""
+    if impl == "plain":
+        return False
     if impl == "kernel" and not t.is_cuda:
         raise RuntimeError(
             f"impl='kernel' runs the CUDA {name} kernel and needs a CUDA "
@@ -59,12 +68,12 @@ def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
     CPU tensor (so the CPU reports the kernel's rounds; the JAX package's
     CPU "auto" is init-only);
     impl="kernel": the CUDA kernel; raises on a CPU tensor;
+    impl="plain": the kernel's plain version on any device;
     impl="ref": the plain init only (``kernel_rounds == 0``), as in JAX.
     2-D fields and unsupported connectivities always take the init-only
     path, as in JAX.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+    _check_impl(impl)
     if mode not in ("manifold", "cc"):
         raise ValueError(f"mode must be 'manifold' or 'cc', got {mode!r}")
     if impl != "ref" and _grid_kernel_ok(field, connectivity):
@@ -91,12 +100,12 @@ def steepest_neighbor(order: torch.Tensor, connectivity: int = 6,
 
     impl="auto"/"kernel" on a 3-D field with connectivity 6/14/18/26: the
     CUDA stencil (int32 order only), or its plain version on a CPU tensor
-    under "auto".  impl="ref", 2-D fields and other connectivities:
-    `grid_steepest`, as in JAX.  `block_x` is the TPU kernel's x-slab
-    (any value >= 1 gives the same ids); the CUDA kernel tiles on its own.
+    under "auto" and anywhere under "plain".  impl="ref", 2-D fields and
+    other connectivities: `grid_steepest`, as in JAX.  `block_x` is the
+    TPU kernel's x-slab (any value >= 1 gives the same ids); the CUDA
+    kernel tiles on its own.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+    _check_impl(impl)
     if block_x < 1:
         raise ValueError(f"block_x must be >= 1, got {block_x}")
     if (impl != "ref" and _grid_kernel_ok(order, connectivity)
@@ -109,10 +118,10 @@ def block_pathcompress(d: torch.Tensor, rounds: int = 4, block: int = 4096,
                        impl: str = "auto") -> torch.Tensor:
     """`rounds` pointer-doubling rounds confined to tiles of
     ``min(block, next_pow2(n))`` pointers (the kernel, or its plain version
-    on a CPU tensor under "auto").  impl="ref": JAX's whole-array rounds
-    (`ref.block_pathcompress_ref`, block = the array)."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+    on a CPU tensor under "auto" and anywhere under "plain").  impl="ref":
+    JAX's whole-array rounds (`ref.block_pathcompress_ref`, block = the
+    array)."""
+    _check_impl(impl)
     if impl == "ref":
         return ref.block_pathcompress_ref(d, rounds)
     if block < 1 or rounds < 0:
@@ -124,22 +133,24 @@ def block_pathcompress(d: torch.Tensor, rounds: int = 4, block: int = 4096,
 
 
 def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                    block_q: int = 128, block_k: int = 128,
+                    check_tiles: bool = True) -> torch.Tensor:
     """Forward attention, q (B, H, Sq, D), k and v (B, Hkv, Sk, D), H a
     multiple of Hkv; returns (B, H, Sq, D) in q's dtype.
 
     As in JAX, ``Sq % min(block_q, Sq)`` and ``Sk % min(block_k, Sk)`` must
-    be 0 (ValueError here, an assertion there); the CUDA kernel tiles on its
-    own.  "auto"/"kernel": a CUDA kernel (bfloat16 with D <= 256 on the
-    tensor cores, float32 with D <= 128 with P V on them in 3xTF32, wider
-    float32 and bfloat16 up to D = 1247 on the CUDA cores;
-    `flash_attention.route`), or its plain version, for any D, on a
-    CPU tensor under "auto"; both give a fully masked causal row the mean
-    of V.  impl="ref": JAX's chunked oracle
-    `ref.flash_attention_ref`, NaN on such rows.
+    be 0 (ValueError here, an assertion there) unless `check_tiles` is
+    False: the CUDA kernel tiles on its own and it and its plain version
+    take any length (the LM's prefill turns the check off, as JAX's model
+    never calls the Pallas kernel).  "auto"/"kernel": a CUDA kernel
+    (bfloat16 with D <= 256 on the tensor cores, float32 with D <= 128 with
+    P V on them in 3xTF32, wider float32 and bfloat16 up to D = 1247 on the
+    CUDA cores; `flash_attention.route`), or its plain version, for any D,
+    on a CPU tensor under "auto" and anywhere under "plain"; both give a
+    fully masked causal row the mean of V.  impl="ref": JAX's chunked
+    oracle `ref.flash_attention_ref`, NaN on such rows.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+    _check_impl(impl)
     if impl == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     _check_attention_shapes(q, k, v)
@@ -147,7 +158,7 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block_q and block_k must be >= 1, got {block_q}, "
                          f"{block_k}")
-    if sq % min(block_q, sq) or sk % min(block_k, sk):
+    if check_tiles and (sq % min(block_q, sq) or sk % min(block_k, sk)):
         raise ValueError(f"Sq = {sq} and Sk = {sk} must be multiples of "
                          f"min(block_q, Sq) = {min(block_q, sq)} and "
                          f"min(block_k, Sk) = {min(block_k, sk)}")
@@ -165,14 +176,13 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
     (B, D) in the table's dtype.
 
     "auto"/"kernel": the CUDA kernel (float32 or bfloat16 tables), or its
-    plain version on a CPU tensor under "auto"; ids outside [0, V) add
-    nothing, as in the Pallas kernel.  impl="ref": JAX's jnp oracle
-    (`ref.embedding_bag`, from `models/bst.py`), whose bag is NaN where an
-    id is >= V.  `vocab_block` and `batch_block` are the TPU kernel's tiles
-    (validated, unused: the CUDA kernel gathers rows).
+    plain version on a CPU tensor under "auto" and anywhere under "plain";
+    ids outside [0, V) add nothing, as in the Pallas kernel.  impl="ref":
+    JAX's jnp oracle (`ref.embedding_bag`, from `models/bst.py`), whose bag
+    is NaN where an id is >= V.  `vocab_block` and `batch_block` are the TPU
+    kernel's tiles (validated, unused: the CUDA kernel gathers rows).
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+    _check_impl(impl)
     if impl == "ref":
         return ref.embedding_bag(table, ids)
     if vocab_block < 1 or batch_block < 1:

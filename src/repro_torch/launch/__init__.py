@@ -1,0 +1,2 @@
+"""Launchers of the port (port of `repro/launch`): `serve`, the batched
+serving entry point (LM prefill + decode, and the topology engine)."""

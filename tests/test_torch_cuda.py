@@ -9,7 +9,10 @@ pointer kernels (`fused_local_phase`, `steepest_neighbor`,
 another order than their plain versions' (whose p stays fp32; the bf16
 tensor-core kernel carries it as two bf16 parts, the fp32 one P and V as
 two TF32 parts each), with rtol 8e-3 / atol 2e-3 (one bf16 ulp) for the bf16
-Sq = Sk = 1024 case.  This file imports neither jax nor
+Sq = Sk = 1024 case.  The models (`repro_torch.models`) at small widths:
+the LM's prefill through the attention kernel against the same model with
+the plain version (fp32 1e-4; bf16 8 ulps of each row's largest logit),
+BST's forward through the bag kernel (1e-5).  This file imports neither jax nor
 `repro`, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -831,3 +834,96 @@ def test_serve_distributed_engine_one_rank_nccl(cuda, tmp_path):
             _serve_equal(dataclasses.replace(g, stats=None), pure)
     finally:
         dist.destroy_process_group()
+
+
+# --- the LM and BST models on the card (repro_torch.models) -------------------
+
+
+def _card_lm_config(dtype):
+    """llama3.2-1b's head layout (D = 64, GQA 4:1) at a small width."""
+    from repro_torch.models.lm import LMConfig
+    return LMConfig(name="card-lm", n_layers=2, d_model=256, n_heads=4,
+                    n_kv_heads=1, d_ff=512, vocab=1000, d_head=64,
+                    param_dtype=dtype, compute_dtype=dtype)
+
+
+def _row_ulps(got, want):
+    """|got - want| in bf16 ulps of each row's largest |want|."""
+    top = want.float().abs().amax(-1, keepdim=True)
+    return (got.float() - want.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 300])
+def test_lm_prefill_kernel_vs_plain(cuda, dtype, s):
+    """Prefill launches the flash_attention kernel once a layer (its route
+    for the dtype), decode none; logits and caches against the same model
+    with attention through the plain version: fp32 within 1e-4 (the kernel
+    within 2e-5 of plain, through two layers), bf16 within 8 ulps of each
+    row's largest logit (one ulp of the attention output a layer)."""
+    from repro_torch.models import lm
+    cfg = _card_lm_config(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    tok = torch.randint(0, cfg.vocab, (3, s), generator=gen, device=cuda)
+    key = flash_mod.route(dtype, 64)
+    before = dict(flash_mod.launches)
+    got, cache = lm.prefill(params, tok, cfg, max_len=s + 2)
+    assert flash_mod.launches[key] == before[key] + cfg.n_layers
+    want, wcache = lm.prefill(params, tok, cfg, max_len=s + 2, impl="plain")
+    assert flash_mod.launches[key] == before[key] + cfg.n_layers
+    nxt = want.argmax(-1)[:, None]
+    dgot, _ = lm.decode_step(params, cache, nxt, cfg)
+    dwant, _ = lm.decode_step(params, wcache, nxt, cfg)
+    assert flash_mod.launches == {k: before[k] + cfg.n_layers * (k == key)
+                                  for k in before}
+    if dtype == torch.float32:
+        for g, w in ((got, want), (dgot, dwant), (cache["k"], wcache["k"]),
+                     (cache["v"], wcache["v"])):
+            _close(g, w, 1e-4)
+    else:
+        assert float(_row_ulps(got, want).max()) <= 8
+        assert float(_row_ulps(dgot, dwant).max()) <= 8
+
+
+def test_bst_forward_kernel_vs_plain(cuda):
+    """BST's smoke config on the card: two segment_bag launches a forward,
+    logits within 1e-5 of the bags' plain version and of the CPU's;
+    retrieval launches none and gives the CPU's ids."""
+    from repro_torch.configs.bst import smoke_config
+    from repro_torch.data import recsys
+    from repro_torch.models import bst
+    cfg = smoke_config()
+    params = bst.init_params(torch.Generator(device=cuda).manual_seed(0),
+                             cfg)
+    host = {k: v.cpu() for k, v in params.items() if torch.is_tensor(v)}
+    host["blocks"] = [{k: v.cpu() for k, v in b.items()}
+                      for b in params["blocks"]]
+    host["mlp"] = [{k: v.cpu() for k, v in m.items()} for m in params["mlp"]]
+    b = recsys.bst_batch(cfg, 1024, seed=0)
+    before = bag_mod.launches["float32"]
+    got = bst.forward(params, recsys.to_tensors(b, cuda), cfg)
+    assert bag_mod.launches["float32"] == before + cfg.n_multihot_fields
+    _close(got, bst.forward(params, recsys.to_tensors(b, cuda), cfg,
+                            impl="plain"), 1e-5)
+    _close(got.cpu(), bst.forward(host, recsys.to_tensors(b, "cpu"), cfg),
+           1e-5)
+    r = recsys.retrieval_batch(cfg, 1, 2048, seed=0)
+    before = bag_mod.launches["float32"]
+    vals, ids = bst.retrieval_step(params, recsys.to_tensors(r, cuda), cfg)
+    assert bag_mod.launches["float32"] == before
+    hvals, hids = bst.retrieval_step(host, recsys.to_tensors(r, "cpu"), cfg)
+    assert torch.equal(ids.cpu(), hids)
+    _close(vals.cpu(), hvals, 1e-5)
+
+
+def test_launcher_lm_mode_on_the_card(cuda):
+    """`repro_torch.launch.serve`'s LM mode at the smoke config on the card:
+    one kernel launch a layer a prefill (a warm-up and LM_RUNS timed ones)."""
+    from repro_torch.launch import serve
+    before = flash_mod.launches["float32"]
+    tps = serve.main(["--arch", "llama3.2-1b", "--smoke", "--batch", "2",
+                      "--prompt-len", "40", "--gen", "3"])
+    assert tps > 0
+    assert flash_mod.launches["float32"] == before + 2 * (serve.LM_RUNS + 1)

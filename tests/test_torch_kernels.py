@@ -434,6 +434,16 @@ def test_flash_dispatch_and_validation():
     with pytest.raises(ValueError, match="block_q"):
         ops.flash_attention(tq, tk, tv, block_q=0)
     ops.flash_attention(tq, tk, tv, block_q=512, block_k=512)  # clamped
+    # the LM's prefill turns the Pallas tile check off: S = 200 is taken,
+    # by "auto" and "plain" alike, and equals JAX's mha_ref
+    qkv2 = _qkv(1, 4, 2, 200, 200, 16, 3)
+    q2, k2, v2 = map(torch.from_numpy, qkv2)
+    with pytest.raises(ValueError, match="multiples"):
+        ops.flash_attention(q2, k2, v2, causal=True)
+    want = _J_MHA_REF(*map(jnp.asarray, qkv2), causal=True)
+    for impl in ("auto", "plain"):
+        _close(ops.flash_attention(q2, k2, v2, causal=True, impl=impl,
+                                   check_tiles=False), want, ATTN_TOL["f32"])
     with pytest.raises(ValueError, match="multiple of the kv heads"):
         ops.flash_attention(tq[:, :3], tk, tv)
     # the plain version takes any D; the CUDA kernels stop at 1247
