@@ -141,7 +141,39 @@ seconds:
      times and peaks.  Then the launcher's topology mode at its smoke
      config, its engine stats on the card equal to the CPU's.  The
      attention and bag rows of the kernels line carry `launches_lm` and
-     `launches_bst`.
+     `launches_bst`;
+ 14. MoE serving (`repro_torch.models.lm`'s MoE FFN): 14a
+     deepseek-moe-16b's `full_config()` in bf16 (16,879,568,896
+     parameters, 33.8 GB, all 28 layers, weights drawn on the card) through
+     the launcher's LM mode, 4 prompts of 4,096 (its context length) and 16
+     greedy tokens, flash_attention counts set to 0 just before and read
+     just after (once a layer a prefill, never in decode); one prefill and
+     one decode step counted apart; layer 0's attention launch at the
+     served shape held to plain; the MoE check on layer 0's own input of
+     one prompt: the card's top-6 and dispatch table == a host recount, and
+     256 sampled tokens' output == a per-expert fp32 loop over their kept
+     and shared experts; 14b kimi-k2-1t-a32b at full width with its 61
+     layers cut to 1 (38.8 GB): a 1 x 2,048 prefill and 4 decode steps (384
+     experts top-8, GQA 64/8, head dim 112 on `flash_tc`), the layer's
+     launch held to plain, the same MoE check.  The bf16 attention row
+     carries `launches_moe`;
+ 15. training: 15a the kernels' gradients (`kernels.ops`' autograd
+     Functions: the kernel's forward, `attention_backward` /
+     `bag_backward` in PyTorch ops) against autograd through the plain
+     versions, attention at llama3.2-1b's layer (1 x 32 heads, 8 kv, 4,096,
+     D 64, causal) in bf16 and fp32, the bag at BST's serve_bulk ids; 15b
+     `repro_torch.launch.train.main` on llama3.2-1b's `full_config()`
+     (bf16 params, fp32 moments, remat), 4 x 2,048, 20 steps: the loss
+     falling, 32 attention launches a step (16 forward, 16 in remat's
+     recompute), step time, tokens/s, peak; 15c the smoke config with
+     `--chaos` as `examples/train_lm.py` runs it: one restart, the restored
+     state == the checkpoint's arrays bit for bit, eval loss < 4; 15d
+     deepseek-moe-16b at full width cut to 2 layers, 3 AdamW steps on one 2
+     x 2,048 batch: gradients finite, the router's and experts' non-zero,
+     the loss falling; 15e one BST step at `full_config()`, batch 4,096:
+     two bag launches, the table's gradient on 64 rows == a host sum of
+     the bags' gradients.  The attention rows and the f32 bag row carry
+     `launches_train`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -244,6 +276,35 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_PROMPT = 4, 32_768, 16, 2048
 # bags agree within 1e-5 (fp32 sums in another order), and the MLP's
 # layers, scaled 1/sqrt(fan-in), keep a perturbation's size
 BST_LOGIT_TOL = (1e-4, 1e-5)
+# phase 14a: deepseek-moe-16b's full config in bf16, MOE_BATCH prompts of
+# its context length through the launcher, MOE_GEN greedy tokens; the MoE
+# check samples MOE_SAMPLE tokens of one prompt, each held to an fp32 loop
+# within MOE_BF16_TOL of its largest |output| (bf16 roundings of the
+# experts' SwiGLU, the slot weight and the combine, each ~2^-9 of a value)
+MOE_ARCH, MOE_SEED = "deepseek-moe-16b", 0
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_SAMPLE = 4, 4096, 16, 256
+MOE_BF16_TOL, MOE_F32_TOL = 2e-2, 1e-5
+# phase 14b: kimi-k2-1t-a32b at full width, 61 layers cut to the one that a
+# card holds (38.8 GB in bf16), a 1 x KIMI_PROMPT prefill and KIMI_STEPS
+# decode steps
+KIMI_ARCH, KIMI_LAYERS, KIMI_PROMPT, KIMI_STEPS = "kimi-k2-1t-a32b", 1, 2048, 4
+# phase 15a: attention gradients at llama3.2-1b's layer (ATTN_H, ATTN_HKV,
+# ATTN_D) at ATTN_GRAD_S, causal; each gradient within ATTN_GRAD_TOL of its
+# tensor's largest |grad| (fp32: the backward recomputes P as autograd
+# through plain keeps it; bf16: the kernel's bf16 output and inputs); bag
+# gradients within BAG_GRAD_TOL (fp32 atomics in another order)
+ATTN_GRAD_S = 4096
+ATTN_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+BAG_GRAD_TOL = 1e-5
+# phase 15b: llama3.2-1b training through the launcher; 15d deepseek-moe-16b
+# at full width cut to MOE_TRAIN_LAYERS of 28, MOE_TRAIN_STEPS AdamW steps
+# at MOE_TRAIN_LR on one batch; 15e one BST step at BST_TRAIN_BATCH.  The
+# launcher's default peak lr (3e-3) is the smoke model's: at llama3.2-1b's
+# width the loss climbs once the warm-up passes ~1e-3, so 15b peaks at a
+# 1B model's 3e-4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 20, 3e-4
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 2, 3, 1e-3
+BST_TRAIN_BATCH = 4096
 
 
 def phase(name, t0):
@@ -2761,6 +2822,738 @@ def launcher_topology(dev):
     phase("launcher: topology mode", t0)
 
 
+def _moe_check(params, tokens, cfg, dev, label):
+    """The MoE FFN of layer 0 on its own input: one prompt (1, S) through
+    layer 0's attention, the residual's ln2 norm = the FFN's T = S tokens.
+    (1) the router's top-k on the card == a host recount (a stable
+    descending sort of the card's fp32 probabilities, lowest expert first
+    on ties), and the dispatch table and weights == a host recount of
+    stable capacity positions; (2) for MOE_SAMPLE tokens, the MoE output
+    (bf16) against a per-expert loop in fp32 over each token's kept
+    experts plus the shared experts, within MOE_BF16_TOL of the token's
+    largest |output| (in fp32 configs MOE_F32_TOL).  Returns numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import lm
+    from repro_torch.nn.core import rms_norm
+
+    lp = params["layers"][0]
+    s = tokens.shape[1]
+    with torch.no_grad():
+        x = lm._embed(params["embed"], tokens, cfg.compute_dtype)
+        pos = torch.arange(s, device=dev)[None]
+        x = x + lm._attention(rms_norm(x, lp["ln1"]), lp, cfg, pos)[0]
+        xn = rms_norm(x, lp["ln2"])[0]                         # (T, D)
+        probs, topi, topv = lm._route(xn, lp, cfg)
+        mcfg = cfg.moe
+        E, k, C = mcfg.n_experts, mcfg.top_k, lm.capacity(s, mcfg)
+        table, wtab, _ = lm._dispatch_tables(topi, topv, s, E, C)
+        y = lm._moe_ffn(xn, lp, cfg)[0]
+    # (1) the host recount
+    p = probs.cpu().numpy()
+    host_topi = np.argsort(-p, axis=1, kind="stable")[:, :k]
+    check(np.array_equal(host_topi, topi.cpu().numpy()),
+          f"{label}: the card's top-{k} == a host stable sort of its "
+          "probabilities")
+    flat = host_topi.reshape(-1)
+    w = topv.cpu().numpy().reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    host_table = np.full(E * C, s, np.int32)
+    host_w = np.zeros(E * C, np.float32)
+    filled = np.zeros(E, np.int64)
+    for slot in order:                 # slots by expert, then token order
+        e = flat[slot]
+        if filled[e] < C:
+            host_table[e * C + filled[e]] = slot // k
+            host_w[e * C + filled[e]] = w[slot]
+        filled[e] += 1
+    check(np.array_equal(host_table, table.cpu().numpy())
+          and np.array_equal(host_w, wtab.cpu().numpy()),
+          f"{label}: the dispatch table and weights == a host recount of "
+          f"stable capacity positions (C = {C})")
+    kept = int((host_table < s).sum())
+    dropped = int(s * k - kept)
+    # (2) sampled tokens in fp32 against the card's output
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = min(MOE_SAMPLE, s)
+    sample = torch.randperm(s, generator=gen)[:n].numpy()
+    at = {int(t): i for i, t in enumerate(sample)}
+    x32 = xn[torch.from_numpy(sample).to(dev)].float()
+    want = torch.zeros_like(x32)
+    slots = np.nonzero(np.isin(host_table, sample))[0]
+    for e in np.unique(slots // C):
+        es = slots[slots // C == e]
+        rows = torch.tensor([at[int(t)] for t in host_table[es]], device=dev)
+        wts = torch.from_numpy(host_w[es]).to(dev)[:, None]
+        h = (F.silu(x32[rows] @ lp["we_gate"][e].float())
+             * (x32[rows] @ lp["we_up"][e].float()))
+        want.index_add_(0, rows, wts * (h @ lp["we_down"][e].float()))
+    hs = (F.silu(x32 @ lp["ws_gate"].float())
+          * (x32 @ lp["ws_up"].float()))
+    want += hs @ lp["ws_down"].float()
+    got = y[torch.from_numpy(sample).to(dev)].float()
+    tol = MOE_BF16_TOL if cfg.compute_dtype == torch.bfloat16 else MOE_F32_TOL
+    share = float(((got - want).abs().amax(1)
+                   / (tol * want.abs().amax(1))).max())
+    err = float((got - want).abs().max())
+    check(share <= 1 and bool(torch.isfinite(got).all()),
+          f"{label}: {n} sampled tokens' MoE output == a per-expert fp32 "
+          f"loop within {tol} of each token's largest |output| (worst at "
+          f"{share} of that; max abs err {err})")
+    print(f"  {label} MoE check, layer 0, one prompt of {s} (C = {C}): "
+          f"top-{k} and dispatch == host recount ({kept} slots kept, "
+          f"{dropped} dropped); {n} sampled tokens within {tol} of their "
+          f"largest |output|, worst at {share:.4f} of it, max abs err {err}")
+    return {"capacity": C, "kept": kept, "dropped": dropped,
+            "sample_share": share, "sample_err": err}
+
+
+def _attention_vs_plain(params, tokens, cfg, dev, label):
+    """Layer 0's attention launch on its own q, k, v at the served shape
+    against the plain version, within phase 7's bf16 limit (ATTN_BF16_FULL)
+    or the fp32 one; returns the max abs error (None off the card)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod, ref
+    from repro_torch.models import lm
+    from repro_torch.nn.core import rms_norm
+
+    if dev.type != "cuda":
+        return None
+    lp = params["layers"][0]
+    b, s = tokens.shape
+    with torch.no_grad():
+        x = lm._embed(params["embed"], tokens, cfg.compute_dtype)
+        pos = torch.arange(s, device=dev).expand(b, s)
+        q, k, v = lm.attention_inputs(rms_norm(x, lp["ln1"]), lp, cfg, pos)
+        del x
+        got = flash_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True)
+        want = ref.flash_attention_kernel_ref(q, k, v, causal=True,
+                                              block_k=512)
+    tol = (ATTN_BF16_FULL if cfg.compute_dtype == torch.bfloat16
+           else TOL["float32"]["attn"])
+    share, at = limit_share(got, want, tol)
+    err = float((got.float() - want.float()).abs().max())
+    check(share <= 1 and not torch.isnan(got).any(),
+          f"{label}: layer 0's flash_attention launch at {tuple(q.shape)} "
+          f"== plain within {tol} (worst element at {share} of its limit, "
+          f"{at}; max abs err {err})")
+    print(f"  {label} layer 0 at q {tuple(q.shape)}, k/v {tuple(k.shape)}: "
+          f"kernel == plain within {tol}, worst element at {share:.4f} of "
+          f"its limit, max abs err {err}")
+    return err
+
+
+def moe_path(smi, dev, smoke=False):
+    """Phase 14: MoE serving.  14a deepseek-moe-16b's `full_config()` in
+    bf16 (weights drawn on the card from seed MOE_SEED) through the
+    launcher's LM mode (MOE_BATCH prompts of MOE_PROMPT, MOE_GEN greedy
+    tokens), the flash_attention counts set to 0 just before and read just
+    after; then one prefill and one decode step counted apart, layer 0's
+    attention launch at the served shape held to plain, and `_moe_check`
+    on layer 0's own input of one prompt.  14b kimi-k2-1t-a32b at full
+    width, its 61 layers cut to KIMI_LAYERS: a 1 x KIMI_PROMPT prefill and
+    KIMI_STEPS decode steps, counted and timed, the layer's attention
+    launch held to plain, `_moe_check`.  `smoke` runs the smoke configs at
+    small sizes (on a cpu `dev`: a rehearsal).  Returns (launches by
+    sub-phase, max abs error of the launches held to plain)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import lm
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def zero():
+        for key in flash_mod.launches:
+            flash_mod.launches[key] = 0
+
+    def gb(cfg):
+        return cfg.n_params() * cfg.param_dtype.itemsize / 1e9
+
+    # 14a. deepseek-moe-16b through the launcher --------------------------------
+    mod = configs.get(MOE_ARCH)
+    cfg = mod.smoke_config() if smoke else mod.full_config()
+    batch, prompt, gen = (2, 64, 4) if smoke else (MOE_BATCH, MOE_PROMPT,
+                                                   MOE_GEN)
+    key = flash_mod.route(cfg.compute_dtype, cfg.head_dim)
+    print(f"  14a {cfg.name}: {cfg.n_params()} parameters "
+          f"({cfg.n_active_params()} active), {gb(cfg):.3f} GB in "
+          f"{cfg.param_dtype}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared; capacity "
+          f"{lm.capacity(batch * prompt, cfg.moe)} a prefill, "
+          f"{lm.capacity(batch, cfg.moe)} a decode step")
+    argv = ["--arch", MOE_ARCH, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen", str(gen), "--seed", str(MOE_SEED),
+            "--device", str(dev)] + (["--smoke"] if smoke else [])
+    zero()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tps, text = _serve_main(argv)
+    sync()
+    launches = {"14a_launcher": dict(flash_mod.launches)}
+    stats = _json_after(text, "[serve] lm stats:")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    want = {k: cfg.n_layers * stats["prefills"] * (k == key) * on_card
+            for k in flash_mod.launches}
+    check(launches["14a_launcher"] == want, f"14a: the launcher's prefills "
+          f"launched the {key} kernel once a layer and nothing else: "
+          f"{launches['14a_launcher']} (want {want})")
+    cont = torch.tensor(stats["continuation"])
+    check(tuple(cont.shape) == (batch, gen) and bool((cont >= 0).all())
+          and bool((cont < cfg.vocab).all()), "14a: the continuation is "
+          f"{batch} x {gen} ids in [0, vocab)")
+    pre = statistics.median(stats["prefill_ms"])
+    dec = statistics.median(stats["decode_ms_per_step"])
+    print(f"  14a {cfg.name} {str(cfg.compute_dtype)[6:]} serving, batch "
+          f"{batch} x prompt {prompt}, "
+          f"{gen} greedy tokens: prefill {pre:.3f} ms (median of "
+          f"{len(stats['prefill_ms'])}: {stats['prefill_ms']}), decode "
+          f"{dec:.3f} ms a token step ({stats['decode_ms_per_step']}), "
+          f"{tps:.1f} tokens/s, peak device memory {peak} GB; launches "
+          f"{launches['14a_launcher']} ({smi})")
+    phase("MoE serving 14a: the launcher", t0)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    params = lm.init_params(g, cfg)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=dev)
+    zero()
+    out = {}
+
+    def run_prefill():
+        out["prefill"] = lm.prefill(params, prompts, cfg, max_len=prompt + 1)
+
+    with torch.no_grad():
+        if on_card:
+            profile(run_prefill, f"14a one prefill, batch {batch} x {prompt}",
+                    top=8)
+        else:
+            run_prefill()
+        logits, cache = out.pop("prefill")
+        sync()
+        launches["14a_prefill"] = dict(flash_mod.launches)
+        nxt = logits.argmax(-1)[:, None]
+        check(torch.equal(nxt[:, 0].cpu(), cont[:, 0]), "14a: the prefill's "
+              "greedy tokens == the launcher's first tokens (same seed)")
+        zero()
+        if on_card:
+            profile(lambda: lm.decode_step(params, cache, nxt, cfg),
+                    f"14a one decode step, batch {batch}", top=8)
+        else:
+            lm.decode_step(params, cache, nxt, cfg)
+        sync()
+    launches["14a_decode_step"] = dict(flash_mod.launches)
+    check(launches["14a_prefill"] == {k: cfg.n_layers * (k == key) * on_card
+                                      for k in flash_mod.launches}
+          and not any(launches["14a_decode_step"].values()),
+          f"14a: a prefill launches the kernel once a layer, a decode step "
+          f"never: {launches['14a_prefill']}, {launches['14a_decode_step']}")
+    del cache, logits
+    err = _attention_vs_plain(params, prompts, cfg, dev, "14a") or 0.0
+    numbers = {"14a": {"prefill_ms": pre, "decode_ms_per_step": dec,
+                       "tokens_per_s": tps, "peak_GB": peak,
+                       **_moe_check(params, prompts[:1], cfg, dev, "14a")}}
+    del params, prompts
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("MoE serving 14a: prefill, decode step, layer 0, MoE check", t0)
+
+    # 14b. kimi-k2 at full width, depth cut -----------------------------------
+    t0 = time.perf_counter()
+    mod = configs.get(KIMI_ARCH)
+    cfg = dataclasses.replace(mod.smoke_config() if smoke
+                              else mod.full_config(), n_layers=KIMI_LAYERS)
+    prompt, steps = (48, 2) if smoke else (KIMI_PROMPT, KIMI_STEPS)
+    key = flash_mod.route(cfg.compute_dtype, cfg.head_dim)
+    print(f"  14b {cfg.name}, {KIMI_LAYERS} of 61 layers: {cfg.n_params()} "
+          f"parameters, {gb(cfg):.3f} GB in {cfg.param_dtype}; "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, GQA "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head dim {cfg.head_dim} "
+          f"({key} kernel)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    params = lm.init_params(g, cfg)
+    tok = torch.randint(0, cfg.vocab, (1, prompt), generator=g, device=dev)
+    out = {}
+
+    def run_prefill():
+        out["prefill"] = lm.prefill(params, tok, cfg, max_len=prompt + steps)
+
+    def run_decode():
+        logits, cache = out["prefill"]
+        for _ in range(steps):
+            logits, cache = lm.decode_step(params, cache,
+                                           logits.argmax(-1)[:, None], cfg)
+        out["decode"] = logits
+
+    with torch.no_grad():
+        run_prefill()                   # warm-up of both, at their shapes
+        run_decode()
+        zero()
+        pre = event_ms(run_prefill, 1) if on_card else run_prefill()
+        sync()
+        launches["14b_prefill"] = dict(flash_mod.launches)
+        zero()
+        dec = event_ms(run_decode, 1) if on_card else run_decode()
+        sync()
+    launches["14b_decode"] = dict(flash_mod.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    check(launches["14b_prefill"] == {k: KIMI_LAYERS * (k == key) * on_card
+                                      for k in flash_mod.launches}
+          and not any(launches["14b_decode"].values())
+          and bool(torch.isfinite(out["decode"].float()).all()),
+          f"14b: the prefill launches {key} once a layer, decode never, "
+          f"logits finite: {launches['14b_prefill']}, "
+          f"{launches['14b_decode']}")
+    del out
+    dec = dec / steps if on_card else None
+    print(f"  14b {cfg.name} ({KIMI_LAYERS} layer) "
+          f"{str(cfg.compute_dtype)[6:]}, 1 x {prompt}: "
+          f"prefill {pre} ms, decode {dec} ms a step ({steps} steps), peak "
+          f"device memory {peak} GB; launches {launches['14b_prefill']} / "
+          f"{launches['14b_decode']} ({smi})")
+    e = _attention_vs_plain(params, tok, cfg, dev, "14b")
+    err = max(err, e or 0.0)
+    numbers["14b"] = {"prefill_ms": pre, "decode_ms_per_step": dec,
+                      "peak_GB": peak,
+                      **_moe_check(params, tok, cfg, dev, "14b")}
+    for k, v in numbers.items():
+        print(f"  {k}: {v}")
+    del params, tok
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("MoE serving 14b: kimi-k2, one layer at full width", t0)
+    return launches, err
+
+
+def _grad_check(label, got, want, tol):
+    """Each of (dq, dk, dv) within `tol` of its tensor's largest |want|;
+    returns the worst share of that limit."""
+    import torch
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        lim = tol * float(w.float().abs().max())
+        share = float((g.float() - w.float()).abs().max()) / lim
+        worst = max(worst, share)
+        check(share <= 1 and bool(torch.isfinite(g.float()).all()),
+              f"{label} {name} within {tol} of its largest |grad| (worst at "
+              f"{share} of that)")
+    return worst
+
+
+def gradient_checks(smi, dev, smoke=False):
+    """Phase 15a: the kernels' gradients.  Attention at llama3.2-1b's layer
+    (1 x 32 heads, 8 kv heads, ATTN_GRAD_S, D 64, causal), bf16 and fp32:
+    dq, dk, dv through `ops.flash_attention`'s autograd Function (the
+    kernel's forward, `ops.attention_backward`) against autograd through
+    the plain version, within ATTN_GRAD_TOL of each tensor's largest
+    |grad|; the bag's table gradient at BST's serve_bulk ids (one call a
+    field, f32) against autograd through the plain version, within
+    BAG_GRAD_TOL.  Times of forward + backward, kernel path and plain.
+    These launches compare and are not counted.  Returns numbers."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import recsys
+    from repro_torch.kernels import ops, ref
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    impl = "kernel" if on_card else "auto"
+    s = 64 if smoke else ATTN_GRAD_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    numbers = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, ATTN_H, s, ATTN_D, generator=gen, device=dev,
+                        dtype=dtype)
+        k, v = (torch.randn(1, ATTN_HKV, s, ATTN_D, generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        do = torch.randn(1, ATTN_H, s, ATTN_D, generator=gen, device=dev,
+                         dtype=dtype)
+
+        def grads(fn):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            fn(*leaves).backward(do)
+            return [t.grad for t in leaves]
+
+        def kernel_path(*a):
+            return ops.flash_attention(*a, causal=True, impl=impl,
+                                       check_tiles=False)
+
+        def plain_path(*a):
+            return ref.flash_attention_kernel_ref(*a, causal=True,
+                                                  block_k=512)
+
+        got, want = grads(kernel_path), grads(plain_path)
+        name = str(dtype).removeprefix("torch.")
+        tol = ATTN_GRAD_TOL[name]
+        share = _grad_check(f"15a attention {name}", got, want, tol)
+        del got, want
+        ms = event_ms(lambda: grads(kernel_path), 3) if on_card else None
+        plain_ms = event_ms(lambda: grads(plain_path), 3) if on_card else None
+        numbers[f"attention_{name}"] = {"share": share, "ms": ms,
+                                        "plain_ms": plain_ms}
+        print(f"  15a attention gradient {name}, q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}, causal: dq, dk, dv through the kernel's "
+              f"Function == autograd through plain within {tol} of each "
+              f"largest |grad| (worst at {share:.4f} of it); forward + "
+              f"backward {ms} ms, plain {plain_ms} ms ({smi})")
+        del q, k, v, do
+    cfg = configs.get("bst").smoke_config() if smoke else \
+        configs.get("bst").full_config()
+    n = 64 if smoke else BAG_B
+    b = recsys.to_tensors(recsys.bst_batch(cfg, n, seed=0), dev)
+    v = cfg.n_multihot_fields * cfg.multihot_vocab
+    table = torch.randn(v, cfg.embed_dim, generator=gen, device=dev)
+    worst = 0.0
+    for f in range(cfg.n_multihot_fields):
+        ids = b["multihot_ids"][:, f]
+        ids = torch.where(ids >= 0, ids + f * cfg.multihot_vocab, -1)
+        dout = torch.randn(n, cfg.embed_dim, generator=gen, device=dev)
+        t1, t2 = (table.clone().requires_grad_() for _ in range(2))
+        ops.embedding_bag(t1, ids, impl=impl).backward(dout)
+        ref.segment_bag_ref(t2, ids).backward(dout)
+        lim = BAG_GRAD_TOL * float(t2.grad.abs().max())
+        share = float((t1.grad - t2.grad).abs().max()) / lim
+        worst = max(worst, share)
+        check(share <= 1, f"15a bag gradient field {f} within {BAG_GRAD_TOL} "
+              f"of its largest |grad| (worst at {share} of that)")
+    numbers["bag_float32"] = {"share": worst}
+    print(f"  15a bag gradient f32 at BST's {n} x {cfg.multihot_len} ids a "
+          f"field, table {tuple(table.shape)}: the Function's index_add == "
+          f"autograd through plain within {BAG_GRAD_TOL} of the largest "
+          f"|grad| (worst at {worst:.4f} of it)")
+    del table, b
+    phase("training 15a: the kernels' gradients", t0)
+    return numbers
+
+
+def _train_main(argv, launches):
+    """`repro_torch.launch.train.main(argv)` with each train step timed
+    (synchronised) and its flash_attention launches and loss recorded, the
+    printed lines echoed after it returns; restores are compared with the
+    checkpoint's arrays on disk bit for bit.  Returns (eval loss, report,
+    {"step_s", "loss", "launches", "restored"})."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _host
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves, tree_map_with_names
+
+    rec = {"step_s": [], "loss": [], "launches": [], "restored": []}
+    make_step, manager = train.make_step, train.CheckpointManager
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def timed_make_step(cfg, opt, dev):
+        step = make_step(cfg, opt, dev)
+
+        def run(state, batch):
+            sync()
+            before = sum(launches.values())
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            sync()
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["launches"].append(sum(launches.values()) - before)
+            rec["loss"].append(float(metrics["loss"]))
+            return state, metrics
+        return run
+
+    class Checked(CheckpointManager):
+        def restore(self, template, step=None):
+            tree, manifest = super().restore(template, step)
+            if tree is not None:
+                path = os.path.join(self._step_dir(manifest["step"]),
+                                    "arrays.npz")
+                with np.load(path) as z:
+                    saved = {k: z[k] for k in z.files}
+                same = []
+                tree_map_with_names(lambda name, t: same.append(
+                    np.array_equal(_host(t)[0], saved[name])
+                    and _host(t)[0].dtype == saved[name].dtype), tree)
+                devices = {str(t.device) for t in tree_leaves(tree)}
+                rec["restored"].append((manifest["step"], len(same),
+                                        all(same), sorted(devices)))
+            return tree, manifest
+
+    out = io.StringIO()
+    train.make_step, train.CheckpointManager = timed_make_step, Checked
+    try:
+        with contextlib.redirect_stdout(out):
+            loss, report = train.main(argv)
+    finally:
+        train.make_step, train.CheckpointManager = make_step, manager
+    lines = out.getvalue().splitlines()
+    for line in lines[:3] + (["  ..."] if len(lines) > 6 else []) + \
+            lines[-3:]:
+        print(f"  {line[:400]}")
+    return loss, report, rec
+
+
+def train_path(smi, dev, smoke=False):
+    """Phase 15b-e: training on the card.  15b `launch.train.main` on
+    llama3.2-1b's `full_config()` (bf16 params, fp32 moments), TRAIN_BATCH
+    x TRAIN_SEQ, TRAIN_STEPS steps, no checkpoint inside the run: loss
+    finite and falling, n_layers x 2 attention launches a step (the
+    forward and remat's recompute in the backward), step time, tokens/s,
+    peak; 15c the smoke config with `--chaos` as `examples/train_lm.py`
+    runs it: one restart, the restored state == the checkpoint's arrays
+    bit for bit, eval loss < 4; 15d deepseek-moe-16b at full width, 28
+    layers cut to MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS AdamW steps on one
+    batch: every gradient finite, the router's and experts' non-zero, the
+    loss falling, peak; 15e one BST step at `full_config()`, batch
+    BST_TRAIN_BATCH: two bag launches, loss finite, the multi-hot table's
+    gradient on 64 sampled rows == a host sum of the bags' gradients.
+    Returns launches by sub-phase and kernel."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import recsys
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import segment_bag as bag_mod
+    from repro_torch.models import bst, lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    launches = {}
+
+    def zero():
+        for mod in (flash_mod, bag_mod):
+            for key in mod.launches:
+                mod.launches[key] = 0
+
+    # 15b. llama3.2-1b through the launcher ------------------------------------
+    t0 = time.perf_counter()
+    mod = configs.get(LM_ARCH)
+    cfg = mod.smoke_config() if smoke else mod.full_config()
+    batch, seq, steps = (2, 32, 4) if smoke else (TRAIN_BATCH, TRAIN_SEQ,
+                                                  TRAIN_STEPS)
+    key = flash_mod.route(cfg.compute_dtype, cfg.head_dim)
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", LM_ARCH, "--steps", str(steps), "--batch",
+                str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
+                "--device", str(dev),
+                "--ckpt-dir", ckpt, "--ckpt-every", str(steps + 1)] + (
+                    ["--smoke"] if smoke else [])
+        zero()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        loss, report, rec = _train_main(argv, flash_mod.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    launches["15b"] = dict(flash_mod.launches)
+    per_step = cfg.n_layers * (1 + cfg.remat) * on_card
+    check(all(n == per_step for n in rec["launches"])
+          and launches["15b"][key] == per_step * steps
+          + 4 * cfg.n_layers * on_card
+          and sum(launches["15b"].values()) == launches["15b"][key],
+          f"15b: {per_step} {key} launches a step (forward and remat's "
+          f"recompute) and {cfg.n_layers} an eval batch: {rec['launches']}, "
+          f"{launches['15b']}")
+    check(all(np.isfinite(rec["loss"])) and rec["loss"][-1] < rec["loss"][0]
+          and np.isfinite(loss) and report["restarts"] == 0,
+          f"15b: losses finite and the last below the first: {rec['loss']}")
+    step_ms = statistics.median(rec["step_s"][1:]) * 1e3
+    numbers = {"15b": {"step_ms": step_ms, "step_ms_all": [
+        round(t * 1e3, 3) for t in rec["step_s"]],
+        "tokens_per_s": batch * seq / step_ms * 1e3, "peak_GB": peak,
+        "loss_first": rec["loss"][0], "loss_last": rec["loss"][-1],
+        "eval_loss": float(loss)}}
+    print(f"  15b {cfg.name} training, batch {batch} x {seq}, {steps} steps "
+          f"({str(cfg.param_dtype)[6:]} params, fp32 moments, remat "
+          f"{cfg.remat}): step {step_ms:.3f} ms "
+          f"(median of steps 2-{steps}), {numbers['15b']['tokens_per_s']:.1f} "
+          f"tokens/s, peak device memory {peak} GB; loss {rec['loss'][0]:.4f}"
+          f" -> {rec['loss'][-1]:.4f}, eval {loss:.4f}; launches "
+          f"{launches['15b']} ({smi})")
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("training 15b: llama3.2-1b through the launcher", t0)
+
+    # 15c. the restart path ----------------------------------------------------
+    t0 = time.perf_counter()
+    scfg = mod.smoke_config()
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", LM_ARCH, "--smoke", "--steps", "200", "--batch",
+                "8", "--seq", "64", "--lr", "3e-3", "--ckpt-dir", ckpt,
+                "--ckpt-every", "50", "--chaos", "--device", str(dev)]
+        zero()
+        loss, report, rec = _train_main(argv, flash_mod.launches)
+    launches["15c"] = dict(flash_mod.launches)
+    skey = flash_mod.route(scfg.compute_dtype, scfg.head_dim)
+    n_steps = len(rec["step_s"])
+    check(report["restarts"] == 1 and loss < 4.0 and n_steps == 220,
+          f"15c: one restart (120 + 100 steps run: {n_steps}) and eval loss "
+          f"{loss} < 4.0")
+    check(len(rec["restored"]) == 1 and rec["restored"][0][0] == 100
+          and rec["restored"][0][2]
+          and rec["restored"][0][3] == [str(torch.device(dev.type, 0))
+                                        if on_card else "cpu"],
+          f"15c: the state restored at step 100 == the checkpoint's arrays "
+          f"bit for bit, on {dev}: {rec['restored']}")
+    check(launches["15c"][skey] == n_steps * scfg.n_layers * 2 * on_card
+          + 4 * scfg.n_layers * on_card,
+          f"15c: {skey} launches {launches['15c']}")
+    numbers["15c"] = {"eval_loss": float(loss), "report": report,
+                      "restored": rec["restored"][0],
+                      "step_ms": statistics.median(rec["step_s"]) * 1e3}
+    print(f"  15c chaos run: {report}, restored step 100 "
+          f"({rec['restored'][0][1]} leaves bit for bit), eval loss "
+          f"{loss:.4f}, step "
+          f"{numbers['15c']['step_ms']:.3f} ms; launches {launches['15c']}")
+    phase("training 15c: the restart path", t0)
+
+    # 15d. deepseek-moe-16b at full width, depth cut -----------------------------
+    t0 = time.perf_counter()
+    mod = configs.get(MOE_ARCH)
+    cfg = dataclasses.replace(mod.smoke_config() if smoke
+                              else mod.full_config(),
+                              n_layers=MOE_TRAIN_LAYERS)
+    batch, seq = (2, 32) if smoke else (2, TRAIN_SEQ)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(MOE_SEED),
+                            cfg)
+    opt = adamw(MOE_TRAIN_LR, weight_decay=0.01)
+    state = opt.init(params)
+    b = next(TokenStream(cfg.vocab, batch, seq, seed=0))
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    zero()
+    losses, experts_hit = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = lm.loss_fn(leaves, b, cfg)
+        loss.backward()
+        grads = tree_map(lambda t: t.grad, leaves)
+        check(all(bool(torch.isfinite(g.float()).all())
+                  for g in tree_leaves(grads)), f"15d step {i}: every "
+              "gradient finite")
+        for lp in grads["layers"]:
+            check(float(lp["router"].float().abs().max()) > 0
+                  and all(float(lp[w].float().abs().max()) > 0
+                          for w in ("we_gate", "we_up", "we_down")),
+                  f"15d step {i}: the router's and the experts' gradients "
+                  "non-zero")
+        experts_hit.append([int((lp["we_down"].float().abs().amax((1, 2))
+                                 > 0).sum()) for lp in grads["layers"]])
+        losses.append(float(loss.detach()))
+        params, state, _ = opt.update(grads, state, params)
+        del leaves, grads
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    launches["15d"] = dict(flash_mod.launches)
+    check(all(np.isfinite(losses))
+          and all(a > b for a, b in zip(losses, losses[1:])),
+          f"15d: the loss falls on the repeated batch: {losses}")
+    numbers["15d"] = {"losses": losses, "experts_with_grad": experts_hit,
+                      "peak_GB": peak}
+    print(f"  15d {cfg.name}, {MOE_TRAIN_LAYERS} of 28 layers at full width "
+          f"({cfg.n_params()} parameters), {MOE_TRAIN_STEPS} AdamW steps on "
+          f"one {batch} x {seq} batch: loss {losses}, experts with a "
+          f"gradient by layer {experts_hit}, peak device memory {peak} GB; "
+          f"launches {launches['15d']} ({smi})")
+    del params, state, b
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("training 15d: deepseek-moe-16b, two layers at full width", t0)
+
+    # 15e. one BST training step ------------------------------------------------
+    t0 = time.perf_counter()
+    mod = configs.get("bst")
+    cfg = mod.smoke_config() if smoke else mod.full_config()
+    n = 64 if smoke else BST_TRAIN_BATCH
+    params = bst.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw(1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    host = recsys.bst_batch(cfg, n, seed=0)
+    b = recsys.to_tensors(host, dev)
+    bags = []
+    embedding_bag = bst.embedding_bag
+
+    def recorded(table, ids, mode="sum", impl="auto"):
+        out = embedding_bag(table, ids, mode, impl)
+        out.retain_grad()
+        bags.append((ids, out))
+        return out
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    zero()
+    bst.embedding_bag = recorded
+    try:
+        loss, metrics = bst.loss_fn(leaves, b, cfg)
+        loss.backward()
+    finally:
+        bst.embedding_bag = embedding_bag
+    if on_card:
+        torch.cuda.synchronize()
+    launches["15e"] = dict(bag_mod.launches)
+    check(launches["15e"] == {"float32": 2 * on_card, "bfloat16": 0}
+          and bool(torch.isfinite(loss)),
+          f"15e: two f32 bag launches, loss finite: {launches['15e']}, "
+          f"{float(loss.detach())}")
+    table_grad = leaves["multihot_embed"].grad
+    ids_all = torch.cat([ids.reshape(-1) for ids, _ in bags]).cpu().numpy()
+    grad_all = torch.cat([out.grad[:, None].expand(-1, ids.shape[1], -1)
+                          .reshape(-1, out.shape[1]) for ids, out in bags])
+    grad_all = grad_all.double().cpu().numpy()
+    present = np.unique(ids_all[ids_all >= 0])
+    rows = present[np.random.default_rng(0).choice(len(present), 64,
+                                                   replace=False)]
+    want = np.stack([grad_all[ids_all == r].sum(0) for r in rows])
+    got = table_grad[torch.from_numpy(rows).to(dev)].double().cpu().numpy()
+    share = float(np.abs(got - want).max() / (BAG_GRAD_TOL
+                                              * np.abs(want).max()))
+    check(share <= 1, f"15e: the table gradient on 64 sampled rows == a host "
+          f"sum of the bags' gradients within {BAG_GRAD_TOL} of the largest "
+          f"(worst at {share} of that)")
+    grads = tree_map(lambda t: t.grad, leaves)
+    params, state, om = opt.update(grads, state, params)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+          "15e: the updated parameters are finite")
+
+    def step():                        # a whole step, for its time
+        lv = tree_map(lambda t: t.detach().requires_grad_(), params)
+        bst.loss_fn(lv, b, cfg)[0].backward()
+        opt.update(tree_map(lambda t: t.grad, lv), state, params)
+
+    step_ms = event_ms(step, 3) if on_card else None
+    numbers["15e"] = {"loss": float(loss.detach()),
+                      "acc": float(metrics["acc"]),
+                      "grad_norm": float(om["grad_norm"]), "share": share,
+                      "peak_GB": peak, "step_ms": step_ms}
+    print(f"  15e BST training step, batch {n}: loss "
+          f"{float(loss.detach()):.5f}, acc {float(metrics['acc']):.4f}, "
+          f"grad norm {float(om['grad_norm'])}"
+          f"; table gradient on 64 rows == host sums (worst at "
+          f"{share:.4f} of {BAG_GRAD_TOL}); launches {launches['15e']}; a "
+          f"warm step {step_ms} ms (median of 3); peak "
+          f"device memory {peak} GB ({smi})")
+    for k, v in numbers.items():
+        print(f"  {k}: {v}")
+    del params, state, leaves, grads, bags
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("training 15e: one BST step", t0)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3055,14 +3848,26 @@ def main():
     lm_launches, lm_err = lm_path(smi, dev)
     bst_launches, bst_err = bst_path(smi, dev)
     launcher_topology(dev)
+
+    # 14. MoE serving, 15. training ----------------------------------------
+    moe_launches, moe_err = moe_path(smi, dev)
+    gradient_checks(smi, dev)
+    train_launches = train_path(smi, dev)
     for row in kernels:
         if row["name"] == "flash_attention/bfloat16":
             row["launches_lm"] = {k: v["bfloat16"]
                                   for k, v in lm_launches.items()}
-            row["max_abs_err"] = max(row["max_abs_err"], lm_err)
+            row["launches_moe"] = {k: v["bfloat16"]
+                                   for k, v in moe_launches.items()}
+            row["launches_train"] = {k: train_launches[k]["bfloat16"]
+                                     for k in ("15b", "15d")}
+            row["max_abs_err"] = max(row["max_abs_err"], lm_err, moe_err)
+        if row["name"] == "flash_attention/float32":
+            row["launches_train"] = {"15c": train_launches["15c"]["float32"]}
         if row["name"] == "segment_bag/float32":
             row["launches_bst"] = {k: v["float32"]
                                    for k, v in bst_launches.items()}
+            row["launches_train"] = {"15e": train_launches["15e"]["float32"]}
             row["max_abs_err"] = max(row["max_abs_err"], bst_err)
 
     print(smi)

@@ -1,8 +1,9 @@
 """Configurations of the port (copies of `repro/configs`'s, so the port reads
 no module of the JAX package): the paper's structured-grid workload,
 `dpc_grid`, its edge-list one, `dpc_graph`, the serving layer's,
-`serve_topology` (`repro_torch.serve`), the dense LMs (`llama3_2_1b`,
-`stablelm_12b`, `minitron_8b`, `repro_torch.models.lm`) and BST (`bst`,
+`serve_topology` (`repro_torch.serve`), the LMs (`llama3_2_1b`,
+`stablelm_12b`, `minitron_8b`, and the MoE `deepseek_moe_16b` and
+`kimi_k2_1t`, `repro_torch.models.lm`) and BST (`bst`,
 `repro_torch.models.bst`).  Each arch module exposes FAMILY, full_config(),
 smoke_config() and SHAPES, as in JAX.
 
@@ -34,8 +35,6 @@ _ALIAS.update({"llama3.2-1b": "llama3_2_1b", "kimi-k2-1t-a32b": "kimi_k2_1t",
 
 # ids of the JAX package whose models the port does not have yet
 NOT_PORTED = {
-    "deepseek_moe_16b": "ROADMAP.md Queue 1 item 5a (the MoE FFN)",
-    "kimi_k2_1t": "ROADMAP.md Queue 1 item 5a (the MoE FFN)",
     "gat_cora": "ROADMAP.md Queue 1 item 5c (GNN)",
     "schnet": "ROADMAP.md Queue 1 item 5c (GNN)",
     "meshgraphnet": "ROADMAP.md Queue 1 item 5c (GNN)",

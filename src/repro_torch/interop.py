@@ -83,7 +83,8 @@ def lm_params_from_jax(tree, device=None) -> dict:
     """The JAX LM's parameter pytree (`repro.models.lm.init_params`, arrays
     or numpy) -> `repro_torch.models.lm`'s parameters on `device` (default
     ``"cuda"``): the same tensors, bfloat16 bit for bit, JAX's stacked
-    layers (leading axis L) split into a list of per-layer dicts."""
+    layers (leading axis L) split into a list of per-layer dicts, the MoE
+    stacks (L, E, D, F) into per-layer (E, D, F) experts."""
     out = _tree_to_torch({k: v for k, v in tree.items() if k != "layers"},
                          device)
     stacked = _tree_to_torch(tree["layers"], device)

@@ -9,7 +9,14 @@ impl="plain": the kernel's plain PyTorch version on any device (no JAX
 counterpart; the models' callers hold the kernel to it).
 impl="ref": the JAX package's `impl="ref"` path, ported as it is.
 Nothing falls back from the kernel to the plain version: on a CUDA tensor
-the kernel runs or the call raises.  The only other fallback is JAX's own:
+the kernel runs or the call raises.
+
+`flash_attention` and `embedding_bag` under "auto" and "kernel" are
+`torch.autograd.Function`s: the forward is the kernel (or, on a CPU tensor
+under "auto", its plain version), the backward is written in PyTorch ops
+(`attention_backward`, `bag_backward`), as JAX, which has no backward
+kernel, differentiates its jnp oracles.  "plain" and "ref" are autograd
+through their PyTorch ops.  The only other fallback is JAX's own:
 2-D fields and connectivities outside (6, 14, 18, 26) take the plain
 stencil path of `steepest_neighbor` and `fused_local_phase`.
 """
@@ -132,6 +139,137 @@ def block_pathcompress(d: torch.Tensor, rounds: int = 4, block: int = 4096,
     return ref.block_pathcompress_kernel_ref(d, rounds=rounds, block=block)
 
 
+# --- gradients of the two model kernels ---------------------------------------
+
+
+def attention_backward(q, k, v, do, causal: bool, block_k: int | None = None):
+    """(dq, dk, dv) of the kernel's attention at q (B, H, Sq, D), k, v
+    (B, Hkv, Sk, D), given the output's gradient `do`, in fp32 PyTorch ops
+    over chunks of `block_k` keys (default: about 2**26 scores a chunk), so
+    no (B, H, Sq, Sk) tensor is made when Sk is longer than a chunk.
+
+    A first pass rebuilds each row's max, sum and fp32 output with the
+    kernel's online softmax (q scaled by `ref.softmax_scale(D)` after its
+    cast to fp32, the causal mask bottom-right filled with -1e30); then,
+    chunk by chunk, P, dV += P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O))
+    with dS = 0 on masked scores (a fully masked row's output is the mean
+    of V, whatever q and k are), dQ += scale dS K and dK += dS^T (scale q),
+    dK and dV summed over each GQA group of query heads.  In a causal chunk
+    the rows that see none of its keys are skipped (their P is exactly 0)
+    unless Sq > Sk, where the first rows see no key at all.  The gradients
+    come back in the inputs' dtypes."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = ref.softmax_scale(d)
+    if block_k is None:
+        block_k = max(1, min(sk, 2 ** 26 // max(b * h * sq, 1)))
+    qf = q.float().reshape(b, hkv, g, sq, d) * scale
+    dof = do.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    shift = sk - sq                       # query row i sits at key i + shift
+    skip = causal and sq <= sk
+
+    def scores(j0, j1, r0):
+        s = qf[..., r0:, :] @ kf[..., j0:j1, :].transpose(-1, -2)
+        if not causal:
+            return s, None
+        seen = (torch.arange(r0, sq, device=q.device)[:, None] + shift
+                >= torch.arange(j0, j1, device=q.device))
+        return torch.where(seen, s, ref.MASKED), seen
+
+    def first_row(j0):
+        return max(0, j0 - shift) if skip else 0
+
+    m = torch.full((b, hkv, g, sq, 1), ref.MASKED, device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j0 in range(0, sk, block_k):
+        j1, r0 = min(j0 + block_k, sk), first_row(j0)
+        s, _ = scores(j0, j1, r0)
+        m_old = m[..., r0:, :]
+        m_new = torch.maximum(m_old, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m_old - m_new)
+        lsum[..., r0:, :] = lsum[..., r0:, :] * corr + p.sum(-1, keepdim=True)
+        acc[..., r0:, :] = acc[..., r0:, :] * corr + p @ vf[..., j0:j1, :]
+        m[..., r0:, :] = m_new
+    lsum = lsum.clamp(min=1e-30)
+    delta = (dof * (acc / lsum)).sum(-1, keepdim=True)
+    del acc
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, hkv, sk, d), device=q.device)
+    dv = torch.zeros_like(dk)
+    for j0 in range(0, sk, block_k):
+        j1, r0 = min(j0 + block_k, sk), first_row(j0)
+        s, seen = scores(j0, j1, r0)
+        p = torch.exp(s - m[..., r0:, :]) / lsum[..., r0:, :]
+        dov = dof[..., r0:, :]
+        dv[:, :, j0:j1] = (p.transpose(-1, -2) @ dov).sum(2)
+        ds = p * (dov @ vf[..., j0:j1, :].transpose(-1, -2)
+                  - delta[..., r0:, :])
+        if seen is not None:
+            ds = torch.where(seen, ds, 0.0)
+        dq[..., r0:, :] += (ds @ kf[..., j0:j1, :]) * scale
+        dk[:, :, j0:j1] = (ds.transpose(-1, -2) @ qf[..., r0:, :]).sum(2)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def bag_backward(dout, ids, vocab: int, dtype) -> torch.Tensor:
+    """The table's gradient (vocab, D) of the sum EmbeddingBag, given the
+    bags' gradient `dout` (B, D): each bag's gradient added (`index_add_`,
+    in fp32) to the rows of its ids in [0, vocab); ids < 0 and >= vocab add
+    nothing, as in the forward.  Cast to `dtype`."""
+    b, l = ids.shape
+    valid = ((ids >= 0) & (ids < vocab)).reshape(-1, 1)
+    rows = torch.where(valid[:, 0], ids.reshape(-1), 0).long()
+    src = dout.float()[:, None].expand(b, l, dout.shape[1]).reshape(b * l, -1)
+    grad = torch.zeros((vocab, dout.shape[1]), dtype=torch.float32,
+                       device=dout.device)
+    grad.index_add_(0, rows, torch.where(valid, src, 0.0))
+    return grad.to(dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The attention kernel (or its plain version, `kernel` False) with
+    `attention_backward` as its gradient; saves q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kernel, block_k):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if kernel:
+            return _flash_kernel(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal)
+        return ref.flash_attention_kernel_ref(q, k, v, causal=causal,
+                                              block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, do, ctx.causal),
+                None, None, None)
+
+
+class _SegmentBag(torch.autograd.Function):
+    """The bag kernel (or its plain version, `kernel` False) with
+    `bag_backward` as its gradient; saves the ids only."""
+
+    @staticmethod
+    def forward(ctx, table, ids, kernel):
+        ctx.save_for_backward(ids)
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        if kernel:
+            return _bag_kernel(table.contiguous(), ids.contiguous())
+        return ref.segment_bag_ref(table, ids)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ids, = ctx.saved_tensors
+        return bag_backward(dout, ids, ctx.vocab, ctx.dtype), None, None
+
+
 def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
                     block_q: int = 128, block_k: int = 128,
                     check_tiles: bool = True) -> torch.Tensor:
@@ -146,9 +284,10 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
     (bfloat16 with D <= 256 on the tensor cores, float32 with D <= 128 with
     P V on them in 3xTF32, wider float32 and bfloat16 up to D = 1247 on the
     CUDA cores; `flash_attention.route`), or its plain version, for any D,
-    on a CPU tensor under "auto" and anywhere under "plain"; both give a
-    fully masked causal row the mean of V.  impl="ref": JAX's chunked
-    oracle `ref.flash_attention_ref`, NaN on such rows.
+    on a CPU tensor under "auto"; both give a fully masked causal row the
+    mean of V, and `attention_backward` is their gradient.  "plain": the
+    plain version anywhere, autograd through its ops.  impl="ref": JAX's
+    chunked oracle `ref.flash_attention_ref`, NaN on such rows.
     """
     _check_impl(impl)
     if impl == "ref":
@@ -162,11 +301,12 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
         raise ValueError(f"Sq = {sq} and Sk = {sk} must be multiples of "
                          f"min(block_q, Sq) = {min(block_q, sq)} and "
                          f"min(block_k, Sk) = {min(block_k, sk)}")
-    if _use_kernel(impl, q, "flash_attention"):
-        return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal)
-    return ref.flash_attention_kernel_ref(q, k, v, causal=causal,
-                                          block_k=min(block_k, sk))
+    if impl == "plain":
+        return ref.flash_attention_kernel_ref(q, k, v, causal=causal,
+                                              block_k=min(block_k, sk))
+    return _FlashAttention.apply(q, k, v, causal,
+                                 _use_kernel(impl, q, "flash_attention"),
+                                 min(block_k, sk))
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
@@ -176,11 +316,13 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
     (B, D) in the table's dtype.
 
     "auto"/"kernel": the CUDA kernel (float32 or bfloat16 tables), or its
-    plain version on a CPU tensor under "auto" and anywhere under "plain";
-    ids outside [0, V) add nothing, as in the Pallas kernel.  impl="ref":
-    JAX's jnp oracle (`ref.embedding_bag`, from `models/bst.py`), whose bag
-    is NaN where an id is >= V.  `vocab_block` and `batch_block` are the TPU
-    kernel's tiles (validated, unused: the CUDA kernel gathers rows).
+    plain version on a CPU tensor under "auto"; ids outside [0, V) add
+    nothing, as in the Pallas kernel, and `bag_backward` is the table's
+    gradient.  "plain": the plain version anywhere, autograd through its
+    ops.  impl="ref": JAX's jnp oracle (`ref.embedding_bag`, from
+    `models/bst.py`), whose bag is NaN where an id is >= V.  `vocab_block`
+    and `batch_block` are the TPU kernel's tiles (validated, unused: the
+    CUDA kernel gathers rows).
     """
     _check_impl(impl)
     if impl == "ref":
@@ -188,6 +330,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
     if vocab_block < 1 or batch_block < 1:
         raise ValueError(f"vocab_block and batch_block must be >= 1, got "
                          f"{vocab_block}, {batch_block}")
-    if _use_kernel(impl, table, "segment_bag"):
-        return _bag_kernel(table.contiguous(), ids.contiguous())
-    return ref.segment_bag_ref(table, ids)
+    if impl == "plain":
+        return ref.segment_bag_ref(table, ids)
+    return _SegmentBag.apply(table, ids, _use_kernel(impl, table,
+                                                     "segment_bag"))

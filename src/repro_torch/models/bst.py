@@ -7,7 +7,8 @@ Parameters are drawn on the device of the caller's `torch.Generator`.
 The multi-hot profile fields are sum EmbeddingBags through
 `kernels.ops.embedding_bag` with the caller's `impl`: under "auto" the
 port's `segment_bag` CUDA kernel on a CUDA tensor and its plain version on
-a CPU tensor; "plain" that plain version anywhere.  The pool's attention
+a CPU tensor, both with `kernels.ops.bag_backward` as the table's gradient
+in `loss_fn`; "plain" that plain version anywhere.  The pool's attention
 is JAX's `mha_ref` (non-causal), as PyTorch ops, since JAX runs no Pallas
 kernel there.
 
@@ -161,6 +162,19 @@ def forward(params, batch, cfg: BSTConfig, impl: str = "auto"):
         if i < len(params["mlp"]) - 1:
             x = F.leaky_relu(x, 0.1)
     return x[:, 0]
+
+
+def loss_fn(params, batch, cfg: BSTConfig, impl: str = "auto"):
+    """Mean logistic loss of the CTR logits against batch["labels"] (B,)
+    in {0, 1}, in the stable form max(z, 0) - z y + log1p(exp(-|z|)), and
+    the share of logits on the label's side of 0 ("acc").  Returns (loss,
+    {"acc"})."""
+    logits = forward(params, batch, cfg, impl)
+    y = batch["labels"].float()
+    loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-logits.abs())))
+    acc = ((logits > 0) == (y > 0.5)).float().mean()
+    return loss, {"acc": acc}
 
 
 def retrieval_step(params, batch, cfg: BSTConfig, top_k: int = 100):

@@ -12,8 +12,14 @@ two TF32 parts each), with rtol 8e-3 / atol 2e-3 (one bf16 ulp) for the bf16
 Sq = Sk = 1024 case.  The models (`repro_torch.models`) at small widths:
 the LM's prefill through the attention kernel against the same model with
 the plain version (fp32 1e-4; bf16 8 ulps of each row's largest logit),
-BST's forward through the bag kernel (1e-5).  This file imports neither jax nor
-`repro`, so it runs on a machine that has only PyTorch:
+BST's forward through the bag kernel (1e-5).  Training: the gradients
+through the kernels' autograd Functions against autograd through the plain
+versions (attention: each within 1e-5 (fp32) or 1e-2 (bf16) of the
+tensor's largest |grad|; the bag's table: 1e-5, bf16 one bf16 ulp), a MoE
+prefill and decode step on the card against the CPU (1e-4), and the
+training launcher on the card (wq's gradient within 1e-4 of its largest
+of the CPU's).  This file imports neither jax nor `repro`, so it runs on a
+machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -927,3 +933,126 @@ def test_launcher_lm_mode_on_the_card(cuda):
                       "--prompt-len", "40", "--gen", "3"])
     assert tps > 0
     assert flash_mod.launches["float32"] == before + 2 * (serve.LM_RUNS + 1)
+
+
+# --- training: the kernels' gradients, MoE, the launcher ------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (2, 4, 2, 130, 130, 64, True),
+    (1, 8, 2, 40, 300, 128, True),
+    (1, 4, 4, 70, 33, 64, True),          # Sq > Sk: rows that see no key
+    (2, 2, 1, 17, 65, 32, False),
+    (1, 2, 1, 50, 50, 320, True),         # the CUDA-core kernel
+])
+def test_flash_gradient_vs_plain_autograd(cuda, b, h, hkv, sq, sk, d, causal,
+                                          dtype, tol):
+    """On a CUDA tensor `ops.flash_attention` gives an output with a
+    grad_fn (the kernel's forward, `ops.attention_backward`); dq, dk, dv
+    within `tol` of each tensor's largest |grad| of autograd through the
+    plain version, one launch a forward."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda, dtype=dtype)
+    k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=cuda,
+                        dtype=dtype) for _ in range(2))
+    do = torch.randn(b, h, sq, d, generator=gen, device=cuda, dtype=dtype)
+    key = flash_mod.route(dtype, d)
+    before = flash_mod.launches[key]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, check_tiles=False)
+    assert out.grad_fn is not None
+    assert flash_mod.launches[key] == before + 1
+    out.backward(do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_kernel_ref(*plain, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == dtype
+        lim = tol * float(want.grad.float().abs().max())
+        assert float((got.grad.float() - want.grad.float()).abs().max()) \
+            <= lim
+    assert flash_mod.launches[key] == before + 1      # backward: no launch
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -8)])
+def test_bag_gradient_vs_plain_autograd(cuda, dtype, tol):
+    """`ops.embedding_bag` on a CUDA table has a grad_fn; the table's
+    gradient (`bag_backward`: index_add in fp32, ids < 0 and >= V adding
+    nothing) against autograd through the plain version in fp32 on the
+    same values (bf16: within one bf16 ulp)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(5000, 32, generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(-1, 5000, (700, 16), generator=gen, device=cuda)
+    ids[0, 0], ids[3, 5] = 5000, 9999                   # past the table
+    dout = torch.randn(700, 32, generator=gen, device=cuda).to(dtype)
+    t = table.clone().requires_grad_()
+    out = ops.embedding_bag(t, ids)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    plain = table.float().requires_grad_()
+    ref.segment_bag_ref(plain, ids).backward(dout.float())
+    torch.cuda.synchronize()
+    assert t.grad.dtype == dtype
+    _close(t.grad.float(), plain.grad, tol)
+
+
+def test_moe_prefill_on_card_equals_cpu(cuda):
+    """deepseek-moe-16b's smoke config: prefill and a decode step on the
+    card (the attention kernel, fp32) against the same weights on the CPU
+    (the plain version): logits within 1e-4, greedy tokens equal; the
+    kernel once a layer a prefill."""
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.models import lm
+    cfg = deepseek_moe_16b.smoke_config()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    card = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    card["layers"] = [{k: v.to(cuda) for k, v in lp.items()}
+                      for lp in params["layers"]]
+    tok = torch.randint(0, cfg.vocab, (3, 40),
+                        generator=torch.Generator().manual_seed(1))
+    before = flash_mod.launches["float32"]
+    got, cache = lm.prefill(card, tok.to(cuda), cfg, max_len=41)
+    assert flash_mod.launches["float32"] == before + cfg.n_layers
+    want, wcache = lm.prefill(params, tok, cfg, max_len=41)
+    _close(got.cpu(), want, 1e-4)
+    nxt = want.argmax(-1)[:, None]
+    assert torch.equal(got.argmax(-1).cpu(), nxt[:, 0])
+    dgot, _ = lm.decode_step(card, cache, nxt.to(cuda), cfg)
+    dwant, _ = lm.decode_step(params, wcache, nxt, cfg)
+    _close(dgot.cpu(), dwant, 1e-4)
+
+
+def test_launch_train_on_the_card(cuda, tmp_path):
+    """Five `launch.train` steps on the card at the smoke config (2 x 2
+    attention launches a step under remat, 2 an eval batch); one gradient
+    of `lm.loss_fn` on the card reaches every layer's wq through the
+    kernel's backward and equals the CPU's within 1e-4 of its largest."""
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    before = flash_mod.launches["float32"]
+    loss, report = train.main(["--smoke", "--steps", "5", "--batch", "2",
+                               "--seq", "32", "--ckpt-dir", str(tmp_path),
+                               "--ckpt-every", "2"])
+    assert np.isfinite(loss) and report["restarts"] == 0
+    assert flash_mod.launches["float32"] == before + 5 * 2 * 2 + 4 * 2
+    cfg = llama3_2_1b.smoke_config()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab, (2, 33),
+                        generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()
+             if k != "layers"}
+        p["layers"] = [{k: v.to(dev).requires_grad_() for k, v in lp.items()}
+                       for lp in params["layers"]]
+        lm.loss_fn(p, {k: v.to(dev) for k, v in batch.items()},
+                   cfg)[0].backward()
+        grads.append([lp["wq"].grad.cpu() for lp in p["layers"]])
+    for got, want in zip(*grads):
+        assert float(got.abs().max()) > 0
+        _close(got, want, 1e-4 * float(want.abs().max()))
