@@ -173,7 +173,24 @@ seconds:
      the loss falling; 15e one BST step at `full_config()`, batch 4,096:
      two bag launches, the table's gradient on 64 rows == a host sum of
      the bags' gradients.  The attention rows and the f32 bag row carry
-     `launches_train`.
+     `launches_train`;
+ 16. the GNN substrate (`repro_torch.models.gnn`, no kernel of its own),
+     each model at its `full_config()` widths, parameters drawn on the
+     host and copied to the card: 16a GAT gat-cora on `cora_like()` (2,708
+     nodes, 10,556 edges, 1,433 features), and GAT adapted to minibatch_lg
+     (602 features, 41 classes) on one `sampled_batch` (1,024 seeds,
+     fanouts 15 and 10, padded to 169,984 nodes and 337,920 edges) of
+     `random_csr(232,965, 492)` (~114.6 M directed edges, built on the
+     host, its seconds printed); 16b SchNet and DimeNet (triplet_chunks 1
+     and 4) on `molecule_batch(128, 30, 64)`; 16c MeshGraphNet (15 layers,
+     remat) on `mesh_grid_graph(512, 512)` (262,144 nodes, 1,568,770
+     directed edges); for each, the card's forward == the port on the CPU
+     within GNN_FWD_TOL, four AdamW steps with the loss falling, warm
+     forward and step ms, peak; a profile of one 16c training step; 16d
+     `examples/gnn_cc_pipeline_torch.py` (20,000-node graph, 10 steps) on
+     the card, its per-step DPC component counts == the CPU run's.  Every
+     launch counter reads 0 over the phase; each kernel row carries it as
+     `launches_gnn`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -305,6 +322,15 @@ BAG_GRAD_TOL = 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 20, 3e-4
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 2, 3, 1e-3
 BST_TRAIN_BATCH = 4096
+# phase 16: the GNNs at full width, parameters drawn from GNN_SEED on the
+# host; the card's fp32 forward held to the CPU's within GNN_FWD_TOL of the
+# output's largest |value| (segment sums by atomics in no fixed order,
+# cuBLAS against the CPU's matmuls, through up to 15 residual layers);
+# GNN_TRAIN_STEPS AdamW steps at GNN_LR (JAX's GNN cells' lr,
+# `build_gnn_cell`; at 1e-3 DimeNet's energy loss jumps 5x on the first
+# step) on one batch; MeshGraphNet on a GNN_MESH_SIDE^2 mesh
+GNN_SEED, GNN_FWD_TOL, GNN_TRAIN_STEPS, GNN_LR = 0, 1e-4, 4, 1e-4
+GNN_MESH_SIDE = 512
 
 
 def phase(name, t0):
@@ -3554,6 +3580,250 @@ def train_path(smi, dev, smoke=False):
     return launches
 
 
+def _gnn_train(params, batch, cfg, steps, on_card):
+    """`steps` AdamW steps of `models.gnn.loss_fn` on one batch: (losses,
+    each step's event ms (None off the card), every gradient finite, the
+    last step's gradient norm)."""
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    opt = adamw(GNN_LR, weight_decay=0.01)
+    state = opt.init(params)
+    losses, times, finite, gnorm = [], [], True, None
+    for _ in range(steps):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = gnn.loss_fn(leaves, batch, cfg)
+        loss.backward()
+        grads = tree_map(lambda t: t.grad, leaves)
+        params, state, om = opt.update(grads, state, params)
+        if on_card:
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        finite &= all(bool(torch.isfinite(g).all())
+                      for g in tree_leaves(grads))
+        losses.append(float(loss.detach()))
+        gnorm = float(om["grad_norm"])
+        del leaves, grads
+    return losses, times or None, finite, gnorm
+
+
+def gnn_path(smi, dev, smoke=False):
+    """Phase 16: the GNN substrate (`repro_torch.models.gnn`) on the card,
+    each model at its `full_config()` widths: 16a GAT gat-cora on
+    `cora_like()` (full_graph_sm), and GAT adapted to minibatch_lg (d_in
+    602, 41 classes, as JAX's `_adapt_gnn_cfg`) on one `sampled_batch` of
+    `NeighborSampler(fanouts=(15, 10))` over `random_csr(232,965, 492)`
+    (reddit's shape, built on the host); 16b SchNet and DimeNet
+    (triplet_chunks 1 and 4) on `molecule_batch(128, 30, 64)`; 16c
+    MeshGraphNet (15 layers, remat) on `mesh_grid_graph(512, 512)`; 16d the
+    `gnn_cc_pipeline_torch` example, 10 steps, on the card and on the CPU.
+    For each model and graph: the card's forward == the port on the CPU
+    (same parameters and batch, fp32, TF32 off) within GNN_FWD_TOL of the
+    output's largest |value|; GNN_TRAIN_STEPS AdamW steps on the batch,
+    every gradient finite and the last loss below the first; warm forward
+    and step ms (CUDA events), peak GB; a profile of one 16c training step;
+    16d's per-step component counts == the CPU run's.  Every kernel launch
+    counter reads 0 after it.  `smoke` runs the smoke configs on small
+    graphs (a CPU rehearsal, nothing timed).  Returns the launches counted
+    over the phase, by kernel module."""
+    import dataclasses
+    import importlib.util
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import gnn_shapes
+    from repro_torch.data import graphs
+    from repro_torch.interop import gnn_batch_from_numpy
+    from repro_torch.kernels import block_pathcompress, flash_attention, \
+        fused_local_phase, segment_bag, steepest_neighbor
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    mods = (fused_local_phase, steepest_neighbor, block_pathcompress,
+            segment_bag, flash_attention)
+    for mod in mods:
+        for key in mod.launches:
+            mod.launches[key] = 0
+    shapes = gnn_shapes.SMOKE_SHAPES if smoke else gnn_shapes.SHAPES
+    make = "smoke_config" if smoke else "full_config"
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fp32 matmuls stay off TF32 (the CPU comparison's tolerance)")
+    numbers = {}
+
+    def run(label, cfg, host, fwd_reps=5):
+        """One model on one batch: the card's forward against the CPU's,
+        training, times and peak; returns (card params, card batch, the
+        card's output)."""
+        t0 = time.perf_counter()
+        params = gnn.init_params(torch.Generator().manual_seed(GNN_SEED),
+                                 cfg)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        want = gnn.apply(params, gnn_batch_from_numpy(host, cpu), cfg)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        card = tree_map(lambda t: t.to(dev), params)
+        batch = gnn_batch_from_numpy(host, dev)
+        with torch.no_grad():
+            got = gnn.apply(card, batch, cfg)
+        err = float((got.cpu() - want).abs().max())
+        top = float(want.abs().max())
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all())
+              and err <= GNN_FWD_TOL * top,
+              f"{label}: the card's forward == the CPU's within "
+              f"{GNN_FWD_TOL} of {top} (err {err})")
+        fwd_ms = None
+        if on_card:
+            with torch.no_grad():
+                fwd_ms = event_ms(lambda: gnn.apply(card, batch, cfg),
+                                  fwd_reps)
+        losses, step_ms, finite, gnorm = _gnn_train(
+            card, batch, cfg, GNN_TRAIN_STEPS, on_card)
+        check(finite and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"{label}: gradients finite and the loss falling over "
+              f"{GNN_TRAIN_STEPS} AdamW steps: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        step = statistics.median(step_ms[1:]) if on_card else None
+        numbers[label] = {"params": n_params, "fwd_ms": fwd_ms,
+                          "step_ms": step, "step_ms_all": step_ms,
+                          "peak_GB": peak, "fwd_err": err, "out_max": top,
+                          "losses": losses, "grad_norm": gnorm,
+                          "seconds": time.perf_counter() - t0}
+        print(f"  {label} ({cfg.name}, {n_params} parameters): forward "
+              f"{ms_text(fwd_ms)} (median of {fwd_reps}), training step "
+              f"{ms_text(step)} (median of steps 2-{GNN_TRAIN_STEPS}), "
+              f"peak device memory {peak} GB; card == CPU within {err} "
+              f"(largest |out| {top}); loss {losses} ({smi})", flush=True)
+        return card, batch, got
+
+    # 16a. GAT: full_graph_sm, then minibatch_lg ------------------------------
+    t0 = time.perf_counter()
+    cfg = getattr(configs.get("gat-cora"), make)()
+    shp = shapes["full_graph_sm"]
+    host = graphs.cora_like(0, shp["n_nodes"], shp["n_edges"],
+                            shp["d_feat"], shp["n_classes"])
+    check(host["node_feat"].shape[1] == cfg.d_in, "cora's feature width")
+    run("16a full_graph_sm", cfg, host)
+    shp = shapes["minibatch_lg"]
+    t1 = time.perf_counter()
+    degree = round(shp["n_edges"] / shp["n_nodes"])     # 492 for reddit
+    indptr, indices = graphs.random_csr(shp["n_nodes"], degree, seed=0)
+    csr_s = time.perf_counter() - t1
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((shp["n_nodes"], shp["d_feat"])).astype(
+        np.float32)
+    labels = rng.integers(0, shp["n_classes"], shp["n_nodes"])
+    t1 = time.perf_counter()
+    sampler = graphs.NeighborSampler(indptr, indices, shp["fanout"], seed=0)
+    host = graphs.sampled_batch(sampler, feats, labels, shp["batch_nodes"])
+    sample_s = time.perf_counter() - t1
+    n_csr = len(indices)
+    real = int(host["node_mask"].sum()), int(host["edge_mask"].sum())
+    pad = (sampler.max_sample_nodes(shp["batch_nodes"]),
+           sampler.max_sample_edges(shp["batch_nodes"]))
+    check((len(host["node_mask"]), len(host["senders"])) == pad
+          and (smoke or pad == (shp["sample_nodes"], shp["sample_edges"])),
+          f"16a minibatch_lg: the sampler pads to {pad} nodes and edges, "
+          "gnn_shapes' sizes")
+    cfg = dataclasses.replace(cfg, d_in=shp["d_feat"],
+                              n_classes=shp["n_classes"])
+    del indptr, indices, feats, labels, sampler
+    run("16a minibatch_lg", cfg, host)
+    numbers["16a minibatch_lg"].update(csr_build_s=csr_s, sample_s=sample_s,
+                                       csr_edges=n_csr, real=real)
+    print(f"  16a minibatch_lg host: random_csr({shp['n_nodes']}, "
+          f"{degree}) built in {csr_s:.3f} s "
+          f"({n_csr} directed edges), one sampled batch in {sample_s:.3f} s "
+          f"({real[0]} of {pad[0]} nodes and {real[1]} of {pad[1]} edges "
+          "real)")
+    del host
+    phase("gnn 16a: GAT, full_graph_sm and minibatch_lg", t0)
+
+    # 16b. SchNet and DimeNet on the molecule batch ---------------------------
+    t0 = time.perf_counter()
+    shp = shapes["molecule"]
+    host = graphs.molecule_batch(shp["batch"], shp["n_nodes"],
+                                 shp["n_edges"], seed=0)
+    run("16b SchNet", getattr(configs.get("schnet"), make)(), host)
+    dcfg = getattr(configs.get("dimenet"), make)()
+    outs = {chunks: run(f"16b DimeNet triplet_chunks {chunks}",
+                        dataclasses.replace(dcfg, triplet_chunks=chunks),
+                        host)[2].cpu()
+            for chunks in (1, 4)}
+    err = float((outs[4] - outs[1]).abs().max())
+    check(err <= GNN_FWD_TOL * float(outs[1].abs().max()),
+          f"16b DimeNet: 4 triplet chunks == 1 within {GNN_FWD_TOL} ({err})")
+    print(f"  16b DimeNet: {len(host['triplet_src'])} triplet slots "
+          f"({int(host['triplet_mask'].sum())} real); 4 chunks == 1 within "
+          f"{err}")
+    del host
+    phase("gnn 16b: SchNet and DimeNet, molecule", t0)
+
+    # 16c. MeshGraphNet on the 512 x 512 mesh ---------------------------------
+    t0 = time.perf_counter()
+    side = 16 if smoke else GNN_MESH_SIDE
+    host = graphs.mesh_grid_graph(side, side, seed=0)
+    cfg = getattr(configs.get("meshgraphnet"), make)()
+    print(f"  16c mesh {side} x {side}: {side * side} nodes, "
+          f"{len(host['senders'])} directed edges")
+    card, batch, _ = run("16c MeshGraphNet", cfg, host, fwd_reps=3)
+    if on_card:
+        def step():
+            leaves = tree_map(lambda t: t.detach().requires_grad_(), card)
+            gnn.loss_fn(leaves, batch, cfg)[0].backward()
+
+        profile(step, "16c MeshGraphNet forward + backward (remat)", top=12)
+    del host, card, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("gnn 16c: MeshGraphNet, 512 x 512 mesh", t0)
+
+    # 16d. the DPC-in-GNN pipeline twin ---------------------------------------
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "gnn_cc_pipeline_torch", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "examples",
+            "gnn_cc_pipeline_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    steps = ["--steps", "2" if smoke else "10"]
+    t1 = time.perf_counter()
+    rec = example.main(["--device", str(dev)] + steps)
+    run_s = time.perf_counter() - t1
+    want = example.main(["--device", "cpu"] + steps)
+    counts = [(r["nodes"], r["components"]) for r in rec]
+    check(counts == [(r["nodes"], r["components"]) for r in want]
+          and all(np.isfinite(r["loss"]) for r in rec),
+          f"16d: the per-step component counts on {dev} == the CPU's: "
+          f"{counts}")
+    numbers["16d"] = {"counts": counts, "seconds": run_s,
+                      "losses": [r["loss"] for r in rec]}
+    print(f"  16d gnn_cc_pipeline_torch, {len(rec)} steps on {dev} in "
+          f"{run_s:.3f} s: (nodes, DPC components) {counts} == the CPU "
+          "run's")
+    phase("gnn 16d: the DPC-in-GNN pipeline twin", t0)
+
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {mod.__name__.rsplit(".", 1)[1]: dict(mod.launches)
+                for mod in mods}
+    print(f"  phase 16 kernel launches: {launches}")
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          "phase 16 launched no kernel (the GNN path reaches none)")
+    for k, v in numbers.items():
+        print(f"  {k}: {v}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3853,6 +4123,9 @@ def main():
     moe_launches, moe_err = moe_path(smi, dev)
     gradient_checks(smi, dev)
     train_launches = train_path(smi, dev)
+
+    # 16. the GNN substrate ------------------------------------------------
+    gnn_launches = gnn_path(smi, dev)
     for row in kernels:
         if row["name"] == "flash_attention/bfloat16":
             row["launches_lm"] = {k: v["bfloat16"]
@@ -3869,6 +4142,9 @@ def main():
                                    for k, v in bst_launches.items()}
             row["launches_train"] = {"15e": train_launches["15e"]["float32"]}
             row["max_abs_err"] = max(row["max_abs_err"], bst_err)
+        mod, _, key = row["name"].partition("/")
+        counts = gnn_launches[mod]
+        row["launches_gnn"] = counts[key] if key else sum(counts.values())
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,12 +3,15 @@ no module of the JAX package): the paper's structured-grid workload,
 `dpc_grid`, its edge-list one, `dpc_graph`, the serving layer's,
 `serve_topology` (`repro_torch.serve`), the LMs (`llama3_2_1b`,
 `stablelm_12b`, `minitron_8b`, and the MoE `deepseek_moe_16b` and
-`kimi_k2_1t`, `repro_torch.models.lm`) and BST (`bst`,
-`repro_torch.models.bst`).  Each arch module exposes FAMILY, full_config(),
+`kimi_k2_1t`, `repro_torch.models.lm`), BST (`bst`,
+`repro_torch.models.bst`) and the GNNs (`gat_cora`, `schnet`,
+`meshgraphnet`, `dimenet`, `repro_torch.models.gnn`, with their shared
+`gnn_shapes`).  Each arch module exposes FAMILY, full_config(),
 smoke_config() and SHAPES, as in JAX.
 
-`get(arch_id)` takes JAX's ids and aliases; an id whose model is not ported
-yet raises NotImplementedError naming its ROADMAP item.
+`get(arch_id)` takes JAX's ids and aliases.  Every id of ARCH_IDS has its
+model in the port, the GNN ids included, so none raises
+NotImplementedError.
 """
 from importlib import import_module
 
@@ -33,21 +36,9 @@ _ALIAS.update({"llama3.2-1b": "llama3_2_1b", "kimi-k2-1t-a32b": "kimi_k2_1t",
                # serving-layer config (not an arch; lives outside ARCH_IDS)
                "serve-topology": "serve_topology"})
 
-# ids of the JAX package whose models the port does not have yet
-NOT_PORTED = {
-    "gat_cora": "ROADMAP.md Queue 1 item 5c (GNN)",
-    "schnet": "ROADMAP.md Queue 1 item 5c (GNN)",
-    "meshgraphnet": "ROADMAP.md Queue 1 item 5c (GNN)",
-    "dimenet": "ROADMAP.md Queue 1 item 5c (GNN)",
-}
-
 
 def get(arch_id: str):
     """The config module of `arch_id` (an id of ARCH_IDS, an alias such as
     "llama3.2-1b", or "serve_topology")."""
     name = _ALIAS.get(arch_id, arch_id)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"config {arch_id!r} is not ported to repro_torch yet: "
-            f"{NOT_PORTED[name]}")
     return import_module(f"repro_torch.configs.{name}")

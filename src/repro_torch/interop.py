@@ -1,9 +1,10 @@
 """Arrays crossing between the JAX package and the port.
 
 What crosses is a request payload (numpy, or a JAX array read back as
-numpy), the result arrays, and the LM's and BST's parameters
-(`lm_params_from_jax`, `bst_params_from_jax`), so that both packages can
-run on the same weights.  JAX runs with x64 off
+numpy), the result arrays, the LM's, BST's and the GNNs' parameters
+(`lm_params_from_jax`, `bst_params_from_jax`, `gnn_params_from_jax`), so
+that both packages can run on the same weights, and a GNN's graph batch
+(`gnn_batch_from_numpy`).  JAX runs with x64 off
 by default, so every payload it receives is canonicalised to 32 bits.  The
 port applies the same rule, or a float64 field would be ordered in float64
 here and in float32 by JAX, and ties would differ.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .tree import tree_leaves, tree_map
 
 # JAX's x32 canonicalisation (jax.dtypes.canonicalize_dtype, x64 off)
 _X32 = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
@@ -99,3 +101,29 @@ def bst_params_from_jax(tree, device=None) -> dict:
     `repro_torch.models.bst`'s parameters on `device` (default ``"cuda"``):
     the same structure (tables, a list of blocks, a list of MLP layers)."""
     return _tree_to_torch(tree, device)
+
+
+def gnn_params_from_jax(tree, device=None) -> dict:
+    """The JAX GNN's parameter pytree (`repro.models.gnn.init_params`, any
+    arch) -> `repro_torch.models.gnn`'s parameters on `device` (default
+    ``"cuda"``): the same tensors bit for bit, MeshGraphNet's stacked
+    layers (a dict of leading-axis-L stacks) split into a list of per-layer
+    dicts, as `models.gnn.mgn_init` draws them."""
+    layers = tree.get("layers")
+    if not isinstance(layers, dict):          # GAT's list, or no "layers"
+        return _tree_to_torch(tree, device)
+    out = _tree_to_torch({k: v for k, v in tree.items() if k != "layers"},
+                         device)
+    stacked = _tree_to_torch(layers, device)
+    n_layers = len(tree_leaves(stacked)[0])
+    out["layers"] = [tree_map(lambda t, i=i: t[i], stacked)
+                     for i in range(n_layers)]
+    return out
+
+
+def gnn_batch_from_numpy(batch, device=None) -> dict:
+    """A GNN graph batch (`repro_torch.data.graphs`' dicts of numpy arrays)
+    -> the same dict of tensors on `device` (default ``"cuda"``) through
+    `canonical_tensor`; the int `n_graphs` stays an int."""
+    return {k: v if k == "n_graphs" else canonical_tensor(v, device)
+            for k, v in batch.items()}

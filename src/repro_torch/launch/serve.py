@@ -18,7 +18,9 @@ flags plus `--device` (``cuda`` unless given).
   PYTHONPATH=src python -m repro_torch.launch.serve --topology --async \\
       --smoke --requests 16 --overload
 
-Add `--device cpu` to run on the CPU.  The LM mode draws its weights and
+Add `--device cpu` to run on the CPU.  The LM mode takes the LM archs,
+dense and MoE; any other arch id (a GNN, BST) loads its config and is
+refused with a ValueError naming its family.  It draws its weights and
 prompts from a `torch.Generator` seeded with `--seed`, runs one untimed
 generation (kernel build, warm-up), then `LM_RUNS` timed ones, each a
 prefill and `--gen - 1` greedy decode steps, timed with CUDA events on a
@@ -80,6 +82,9 @@ def generate(params, prompts, cfg, gen: int, max_len: int | None = None):
 
 def serve_lm(args):
     mod = configs.get(args.arch)
+    if mod.FAMILY != "lm":
+        raise ValueError(f"serve.py's LM mode drives LM archs, not "
+                         f"{args.arch!r} (family {mod.FAMILY!r})")
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -1056,3 +1056,56 @@ def test_launch_train_on_the_card(cuda, tmp_path):
     for got, want in zip(*grads):
         assert float(got.abs().max()) > 0
         _close(got, want, 1e-4 * float(want.abs().max()))
+
+
+def _gnn_case(arch):
+    """(smoke config, numpy batch) of a GNN arch, from the port's own
+    generators; GAT on a sampled batch with padded edges."""
+    from repro_torch import configs
+    from repro_torch.data import graphs
+    cfg = configs.get(arch).smoke_config()
+    if arch == "gat_cora":
+        indptr, indices = graphs.random_csr(600, 6, seed=1)
+        rng = np.random.default_rng(2)
+        feats = rng.standard_normal((600, cfg.d_in)).astype(np.float32)
+        sampler = graphs.NeighborSampler(indptr, indices, (4, 3), seed=3)
+        return cfg, graphs.sampled_batch(sampler, feats,
+                                         rng.integers(0, 7, 600), 16)
+    if arch == "meshgraphnet":
+        return cfg, graphs.mesh_grid_graph(9, 7, seed=4)
+    cfg = dataclasses.replace(cfg, triplet_chunks=4) if arch == "dimenet" \
+        else cfg
+    return cfg, graphs.molecule_batch(6, 10, 24, seed=5)
+
+
+@pytest.mark.parametrize("arch", ["gat_cora", "schnet", "meshgraphnet",
+                                  "dimenet"])
+def test_gnn_on_card_equals_cpu(cuda, arch):
+    """A GNN's forward, loss and every gradient on the card against the
+    same parameters and batch on the CPU (fp32, TF32 off): outputs and loss
+    within 1e-5, gradients within 1e-4, of the tensor's largest |value|
+    (the card's `index_add_` sums by atomics, in no fixed order).  No kernel
+    of `repro_torch.kernels` launches."""
+    from repro_torch.interop import gnn_batch_from_numpy
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, batch = _gnn_case(arch)
+    params = gnn.init_params(torch.Generator().manual_seed(0), cfg)
+    counts = [dict(m.launches) for m in (kmod, steepest_mod, bpc_mod,
+                                         flash_mod, bag_mod)]
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        b = gnn_batch_from_numpy(batch, dev)
+        out = gnn.apply(p, b, cfg)
+        loss, _ = gnn.loss_fn(p, b, cfg)
+        loss.backward()
+        results.append((out.detach().cpu(), loss.detach().cpu(),
+                        [t.grad.cpu() for t in tree_leaves(p)]))
+    (out, loss, grads), (wout, wloss, wgrads) = results
+    _close(out, wout, 1e-5 * float(wout.abs().max()))
+    _close(loss, wloss, 1e-5 * float(wloss.abs()))
+    for got, want in zip(grads, wgrads):
+        _close(got, want, 1e-4 * float(want.abs().max()) + 1e-12)
+    assert counts == [dict(m.launches) for m in (kmod, steepest_mod, bpc_mod,
+                                                 flash_mod, bag_mod)]

@@ -59,11 +59,12 @@ def test_lm_mode_needs_a_card_unless_told_otherwise():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(LM_ARGS)
-    # the MoE archs serve since the MoE FFN is ported; GNN ids still raise
+    # the MoE archs serve since the MoE FFN is ported; a GNN id loads its
+    # config and the LM mode refuses it up front, naming its family
     tps, text = _run(serve.main, ["--arch", "deepseek-moe-16b", "--smoke",
                                   "--device", "cpu"])
     assert tps > 0 and '"arch": "deepseek-moe-16b-smoke"' in text
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
+    with pytest.raises(ValueError, match="family 'gnn'"):
         serve.main(["--arch", "gat-cora", "--smoke", "--device", "cpu"])
 
 
