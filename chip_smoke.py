@@ -190,12 +190,38 @@ seconds:
      `examples/gnn_cc_pipeline_torch.py` (20,000-node graph, 10 steps) on
      the card, its per-step DPC component counts == the CPU run's.  Every
      launch counter reads 0 over the phase; each kernel row carries it as
-     `launches_gnn`.
+     `launches_gnn`;
+ 17. the LM on a mesh (`repro_torch.runtime.meshctx`, `models.lm`'s
+     sharded paths) on four gloo ranks sharing the card, each sub-phase
+     held to the same work on one rank in this process: 17a one AdamW
+     step of llama3.2-1b at full width (16 layers cut to 4, bf16) at 4 x
+     2,048 on mesh (2, 2) (FSDP x TP, sequence parallel): the loss, the
+     gradient norm, every gathered gradient leaf, every gathered updated
+     parameter and its update's signs leaf by leaf (DLM_* bounds), each
+     rank holding 1/4 of every FSDP x TP leaf, 8 `flash_tc` launches a
+     rank (one a layer and one in remat's recompute), each == plain on
+     its own inputs; step ms and peak a rank; 17b llama3.2-1b whole, 4
+     greedy decode steps against a 524,288-position cache (17.18 GB bf16,
+     drawn from a seed with K at DLM_LONG_KSCALE sigma, no prefill) whose
+     sequence is split over the four ranks (`LONG_CACHE_LOGICAL` on mesh
+     (4, 1), 4.29 GB a rank): logits and tokens == one rank's, a new draw
+     of any one slice moving the one-rank logits beyond the gate, the new
+     tokens' K and V read back on the one rank holding them; 17c
+     deepseek-moe-16b at full width cut to 2 layers, a 2 x 2,048 prefill
+     through the shard_map dispatch on (2, 2) == the one-rank "local"
+     dispatch with dp_shards 2: in fp32, kept and dropped slots equal; in
+     bf16 on the ranks' experts, slots equal and logits within
+     DLM_MOE_BF16_ULPS, the routings' flips within a budget; 17d
+     `examples/quickstart_torch.py` and `examples/graph_cc_torch.py` on
+     two gloo ranks sharing the card.  The attention rows carry the
+     launches as `launches_distributed_lm`, the fused rows 17d's
+     single-device launches as `launches_examples`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
 the exit code is not 0.
 """
+import contextlib
 import json
 import os
 import re
@@ -331,6 +357,63 @@ BST_TRAIN_BATCH = 4096
 # step) on one batch; MeshGraphNet on a GNN_MESH_SIDE^2 mesh
 GNN_SEED, GNN_FWD_TOL, GNN_TRAIN_STEPS, GNN_LR = 0, 1e-4, 4, 1e-4
 GNN_MESH_SIDE = 512
+# phase 17: the distributed LM on DLM_WORLD gloo ranks sharing the card,
+# mesh DLM_MESH over ("data", "model").  17a llama3.2-1b at full width,
+# 16 layers cut to DLM_LAYERS, DLM_BATCH x DLM_SEQ tokens, sequence
+# parallel, one AdamW step at DLM_LR against the same step on one rank.
+# Gates: the loss within DLM_LOSS_TOL; the global gradient norm within
+# DLM_NORM_RTOL; every gradient leaf, gathered whole, within DLM_GRAD_ULPS
+# bf16 ulps of the leaf's largest |grad| (a wrong leaf is off by about
+# its largest value, 128 ulps and more); every parameter within 2 lr (a
+# near-zero gradient's sign may flip between the two sums) plus 2 bf16
+# ulps of the larger of the two values; the update's sign equal on at
+# least DLM_SIGN_SHARE of the elements that moved by more than lr / 2, in
+# every leaf that has one (a wrong gradient agrees on about half; the
+# norms' bf16 weights at 1.0 do not move by lr); every one of a
+# rank's flash_attention launches == plain on its own inputs.
+DLM_WORLD, DLM_MESH, DLM_SEED = 4, (2, 2), 17
+DLM_LAYERS, DLM_BATCH, DLM_SEQ, DLM_LR = 4, 4, 2048, 1e-3
+DLM_LOSS_TOL, DLM_NORM_RTOL, DLM_SIGN_SHARE = 2e-3, 1e-2, 0.99
+DLM_GRAD_ULPS = 8
+# 17b: llama3.2-1b at full width and depth decoding DLM_LONG_STEPS greedy
+# tokens against a long_500k cache of DLM_LONG_LEN positions (batch 1),
+# filled from a seed a (layer, DLM_LONG_CHUNK positions) chunk at a time,
+# so a rank draws its own positions alone; the cache sequence over all
+# four ranks (`lm.LONG_CACHE_LOGICAL`) on mesh (4, 1): the weights FSDP
+# over "data", not split over "model", so that the one-rank decode differs
+# only in the log-sum-exp merge's order (bf16 greedy tokens flip on a
+# near tie).  Logits within DLM_LONG_TOL of the row's largest |logit|,
+# tokens equal (each step fed the one-rank run's token).  The cache's K
+# is drawn N(0, DLM_LONG_KSCALE^2), so a query's scores have a standard
+# deviation near DLM_LONG_KSCALE and its softmax sits on a few positions
+# spread over the ranks (at N(0, 1) it is near uniform over 524,288
+# positions, each head's output near 1e-3, and no slice shows in the
+# logits).  The gate's reach: step 0 again on one rank with any one
+# rank's slice drawn anew must move the logits beyond DLM_LONG_TOL.  Each
+# written K and V slot is read back: the positions that no longer hold
+# their seeded values are exactly the 4 new tokens' in every layer, all
+# on the rank that holds them, their values within DLM_LONG_TOL of the
+# layer's largest written |value| of the one-rank run's.
+DLM_LONG_LEN, DLM_LONG_STEPS, DLM_LONG_CHUNK = 524_288, 4, 32_768
+DLM_LONG_TOL, DLM_LONG_KSCALE = 3e-2, 4.0
+# 17c: deepseek-moe-16b at full width cut to DLM_MOE_LAYERS layers, a
+# DLM_MOE_BATCH x DLM_MOE_SEQ prefill, shard_map dispatch on the mesh
+# against the one-rank "local" dispatch with dp_shards 2.  In fp32 the
+# kept and dropped slot counts are gated equal and the logits within
+# DLM_MOE_TOL of the row's largest |logit|.  In bf16, the config's own
+# precision, the roundings of the row-parallel sums flip top-6 near-ties,
+# so the one-rank run takes the ranks' experts (its own weights for them);
+# then the slot counts are equal and the logits within DLM_MOE_BF16_ULPS
+# bf16 ulps of the row's largest |logit|.  The bf16 routings' flips (the
+# one-rank run's own experts against the ranks') stay within
+# DLM_MOE_FLIP_BUDGET of the tokens in every layer (the second layer's
+# input carries the first's flipped tokens: an H100 read 0.37% and 1.88%;
+# a wrong router or token block differs on most tokens), and both model
+# ranks of a data shard route alike.
+DLM_MOE_LAYERS, DLM_MOE_BATCH, DLM_MOE_SEQ, DLM_MOE_TOL = 2, 2, 2048, 1e-4
+DLM_MOE_BF16_ULPS, DLM_MOE_FLIP_BUDGET = 8, 0.05
+# 17d: the example twins on DLM_EXAMPLE_RANKS gloo ranks sharing the card
+DLM_EXAMPLE_RANKS = 2
 
 
 def phase(name, t0):
@@ -3283,8 +3366,8 @@ def _train_main(argv, launches):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
 
-    def timed_make_step(cfg, opt, dev):
-        step = make_step(cfg, opt, dev)
+    def timed_make_step(cfg, opt, dev, mesh=None):
+        step = make_step(cfg, opt, dev, mesh)
 
         def run(state, batch):
             sync()
@@ -3824,6 +3907,756 @@ def gnn_path(smi, dev, smoke=False):
     return launches
 
 
+def _dlm_configs(smoke):
+    """Phase 17's configs: "a" (llama3.2-1b cut to DLM_LAYERS), "b"
+    (llama3.2-1b whole), "c" (deepseek-moe-16b cut to DLM_MOE_LAYERS, fp32,
+    shard_map) and "c_local", its one-rank reference (the "local" dispatch,
+    dp_shards = the mesh's data size); "c16" and "c16_local" the same in
+    the config's bf16.  `smoke`: the smoke configs."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+
+    def get(arch):
+        mod = configs.get(arch)
+        return mod.smoke_config() if smoke else mod.full_config()
+
+    llama, moe16 = get("llama3.2-1b"), get(MOE_ARCH)
+    moe16 = dataclasses.replace(moe16, n_layers=DLM_MOE_LAYERS)
+    moe = dataclasses.replace(moe16, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+
+    def dispatch(cfg, **kw):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                **kw))
+
+    local = {"dispatch": "local", "dp_shards": DLM_MESH[0]}
+    return {"a": dataclasses.replace(llama, n_layers=min(DLM_LAYERS,
+                                                         llama.n_layers)),
+            "b": llama, "c": dispatch(moe, dispatch="shard_map"),
+            "c_local": dispatch(moe, **local),
+            "c16": dispatch(moe16, dispatch="shard_map"),
+            "c16_local": dispatch(moe16, **local)}
+
+
+@contextlib.contextmanager
+def _moe_probe(slots=None, routes=None, replay=None):
+    """Phase 17c's view of `models.lm`'s MoE while it runs: each dispatch's
+    (kept, dropped) (token, choice) counts appended to `slots` (0-d
+    tensors), each routing's top-k experts (T, k) to `routes`; `replay`, a
+    list of top-k expert tensors that the routings take in turn in place
+    of their own, each with its own probabilities' weights for them."""
+    from repro_torch.models import lm
+    tables, route = lm._dispatch_tables, lm._route
+
+    def dispatch(topi, topv, T, E, C):
+        table, wtab, slot = tables(topi, topv, T, E, C)
+        if slots is not None:
+            kept = (slot < E * C).sum()
+            slots.append((kept, slot.numel() - kept))
+        return table, wtab, slot
+
+    def routing(x2d, lp, cfg):
+        probs, topi, topv = route(x2d, lp, cfg)
+        if replay is not None:
+            topi = replay.pop(0).to(topi.device)
+            topv = probs.gather(1, topi)
+            topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+        if routes is not None:
+            routes.append(topi.cpu())
+        return probs, topi, topv
+
+    lm._dispatch_tables, lm._route = dispatch, routing
+    try:
+        yield
+    finally:
+        lm._dispatch_tables, lm._route = tables, route
+
+
+def _slot_sums(slots):
+    """(kept, dropped) over `_moe_probe`'s counts."""
+    return (sum(int(k) for k, _ in slots), sum(int(d) for _, d in slots))
+
+
+def _bf16_ulps(got, want, dim=-1):
+    """The largest |got - want| in bf16 ulps of the largest |want| along
+    `dim` (None: the whole tensor)."""
+    import torch
+    got, want = got.float(), want.float()
+    top = want.abs().amax() if dim is None else want.abs().amax(
+        dim, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=1e-30))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def _dlm_sizes(smoke):
+    """(17a's batch, seq; 17b's cache length, chunk; 17c's batch, seq)."""
+    if smoke:
+        return {"a": (4, 32), "b": (64, 16), "c": (2, 32)}
+    return {"a": (DLM_BATCH, DLM_SEQ), "b": (DLM_LONG_LEN, DLM_LONG_CHUNK),
+            "c": (DLM_MOE_BATCH, DLM_MOE_SEQ)}
+
+
+def _long_chunk(cfg, layer, chunk, which, size, dev, draw=0):
+    """Positions [chunk * size, (chunk + 1) * size) of layer `layer`'s K or
+    V cache, (1, Hkv, size, dh) in the compute dtype, drawn from a
+    generator seeded by (layer, chunk, which, draw) alone, so a rank draws
+    its own positions and the one-rank reference the same values; K is
+    scaled by DLM_LONG_KSCALE.  `draw` > 0: another draw of the same."""
+    import torch
+    seed = (DLM_SEED * 1_000_003 + layer * 4099 + chunk * 2 + (which == "v")
+            + draw * 7_919_000)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, cfg.n_kv_heads, size, cfg.head_dim), generator=g,
+                    device=dev)
+    return (x * DLM_LONG_KSCALE if which == "k" else x).to(cfg.compute_dtype)
+
+
+def _fill_long(cache, cfg, base, lo, hi, chunk, dev, draw=0):
+    """Positions [lo, hi) (multiples of `chunk`) of every layer of the K
+    and V caches (L, 1, Hkv, S, dh), whose index 0 holds position `base`,
+    drawn by `_long_chunk`."""
+    for layer in range(cfg.n_layers):
+        for c in range(lo // chunk, hi // chunk):
+            for w in ("k", "v"):
+                cache[w][layer, :, :, c * chunk - base:(c + 1) * chunk
+                         - base] = _long_chunk(cfg, layer, c, w, chunk, dev,
+                                               draw)
+
+
+def _written_slots(cache, cfg, base, chunk, dev):
+    """Every (layer, position) of the K and V caches (index 0 at position
+    `base`) that no longer holds its seeded value, with the value there:
+    {"k": [(layer, position, (Hkv, dh) fp32 on the host)], "v": [...]}."""
+    out = {"k": [], "v": []}
+    n = cache["k"].shape[3]
+    for layer in range(cfg.n_layers):
+        for c in range(base // chunk, (base + n) // chunk):
+            a = c * chunk - base
+            for w in ("k", "v"):
+                blk = cache[w][layer, 0, :, a:a + chunk]
+                fill = _long_chunk(cfg, layer, c, w, chunk, dev)[0]
+                for p in (blk != fill).any(-1).any(0).nonzero()[:, 0]:
+                    out[w].append((layer, base + a + int(p),
+                                   blk[:, int(p)].float().cpu().clone()))
+    return out
+
+
+def _flat(tree):
+    from repro_torch.tree import tree_map_with_names
+    out = {}
+    tree_map_with_names(lambda n, t: out.__setitem__(n, t), tree)
+    return out
+
+
+def _flat_specs(cfg):
+    from repro_torch.models import lm
+    tree = lm.param_logical_specs(cfg)
+    out = {k: tree[k] for k in ("embed", "ln_f", "unembed")}
+    out.update({f"layers/{i}/{k}": v for i, lp in enumerate(tree["layers"])
+                for k, v in lp.items()})
+    return out
+
+
+def _dlm_rank(rank, store, tmp, device, smoke):
+    """Phase 17's ranks: 17a, 17b and 17c in turn, each rank writing its
+    records to `tmp` (17a's gradient and updated parameter blocks to a
+    file of their own).  Launch counts are set to 0 just before each
+    measured call and read just after; 17a's kernel-vs-plain checks run
+    after that."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod, ops, ref
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.meshctx import LOGICAL_AXES, Mesh, use_mesh
+    from repro_torch.tree import tree_map
+
+    _rank_setup(rank, DLM_WORLD, store, "gloo", device)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfgs = _dlm_configs(smoke)
+    cfg_a, cfg_b = cfgs["a"], cfgs["b"]
+    sizes = _dlm_sizes(smoke)
+    toks = torch.load(os.path.join(tmp, "dlm_tokens.pt"), weights_only=True)
+    mesh = Mesh(DLM_MESH, ("data", "model"), dev)
+    long_mesh = Mesh((DLM_WORLD, 1), ("data", "model"), dev)
+    dp = LOGICAL_AXES["dp"]
+    out = {"coords": mesh.coords}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset():
+        for k in flash_mod.launches:
+            flash_mod.launches[k] = 0
+        if on_card:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def draw(cfg, seed, m):
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                cfg)
+        whole = {n: t.numel() for n, t in _flat(params).items()}
+        return lm.shard_params(params, cfg, m), whole
+
+    # 17a: one AdamW step of llama3.2-1b (cut) on (2, 2), SP on ----------
+    local, whole = draw(cfg_a, DLM_SEED, mesh)
+    specs = _flat_specs(cfg_a)
+    shares = {n: whole[n] / t.numel() for n, t in _flat(local).items()
+              if "fsdp" in specs[n] and "tp" in specs[n]}
+    batch = {k: mesh.block(toks["a"].to(dev), dp, 0)
+             for k in ("tokens", "labels")}
+    opt = adamw(DLM_LR, norm_fn=lm.global_norm_fn(cfg_a, mesh))
+    state = opt.init(local)
+    with use_mesh(mesh), torch.no_grad():
+        lm.loss_fn(local, batch, cfg_a)             # warm-up, not counted
+    seen, plain_call = [], ops.flash_attention
+
+    def record(q, k, v, **kw):
+        seen.append(tuple(t.detach().clone() for t in (q, k, v)))
+        return plain_call(q, k, v, **kw)
+
+    reset()
+    t = time.perf_counter()
+    ops.flash_attention = record
+    try:
+        with use_mesh(mesh):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), local)
+            loss, _ = lm.loss_fn(leaves, batch, cfg_a)
+            loss.backward()
+            grads = tree_map(lambda p: p.grad, leaves)
+            new, state, om = opt.update(grads, state, local)
+        sync()
+    finally:
+        ops.flash_attention = plain_call
+    rec = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
+           "step_ms": (time.perf_counter() - t) * 1e3, "peak_gb": peak(),
+           "launches": dict(flash_mod.launches), "shares": shares,
+           "attn": []}
+    if on_card:                     # every launch of the step == plain
+        for q, k, v in seen:
+            with torch.no_grad():
+                got = flash_mod.flash_attention(q.contiguous(),
+                                                k.contiguous(),
+                                                v.contiguous(), causal=True)
+                want = ref.flash_attention_kernel_ref(q, k, v, causal=True,
+                                                      block_k=512)
+            share, at = limit_share(got, want, ATTN_BF16_FULL)
+            rec["attn"].append((tuple(q.shape), tuple(k.shape), share, at,
+                                float((got.float() - want.float()).abs()
+                                      .max())))
+    torch.save({"new": {n: t.detach().cpu() for n, t in _flat(new).items()},
+                "grad": {n: t.detach().cpu()
+                         for n, t in _flat(grads).items()}},
+               os.path.join(tmp, f"dlm_17a_rank{rank}.pt"))
+    out["17a"] = rec
+    del local, new, state, leaves, grads, loss, batch, seen
+    reset()
+
+    # 17b: context-parallel decode, the cache over all ranks ---------------
+    local, _ = draw(cfg_b, DLM_SEED + 1, long_mesh)
+    length, chunk = sizes["b"]
+    n_seq = long_mesh.axis_size(("data", "model"))
+    s_loc = length // n_seq
+    lo = long_mesh.index(("data", "model")) * s_loc
+    cache = {w: torch.empty((cfg_b.n_layers, 1, cfg_b.n_kv_heads, s_loc,
+                             cfg_b.head_dim), dtype=cfg_b.compute_dtype,
+                            device=dev) for w in ("k", "v")}
+    _fill_long(cache, cfg_b, lo, lo, lo + s_loc, chunk, dev)
+    cache.update(length=length - DLM_LONG_STEPS,
+                 logical=lm.LONG_CACHE_LOGICAL)
+    block = tuple(cache["k"].shape)
+    reset()
+    logits, times = [], []
+    with use_mesh(long_mesh), torch.no_grad():
+        for i in range(DLM_LONG_STEPS):
+            sync()
+            t = time.perf_counter()
+            lg, cache = lm.decode_step(local, cache,
+                                       toks["b"][i].view(1, 1).to(dev), cfg_b)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            logits.append(lg.float().cpu())
+    out["17b"] = {"logits": torch.cat(logits), "step_ms": times,
+                  "peak_gb": peak(), "launches": dict(flash_mod.launches),
+                  "length": cache["length"], "block": block, "lo": lo,
+                  "written": _written_slots(cache, cfg_b, lo, chunk, dev)}
+    del local, cache, lg
+    reset()
+
+    # 17c: the shard_map MoE on (2, 2), fp32 then bf16 ----------------------
+    for key, seed in (("c", DLM_SEED + 2), ("c16", DLM_SEED + 3)):
+        local, _ = draw(cfgs[key], seed, mesh)
+        tokens = mesh.block(toks["c"].to(dev), dp, 0)
+        reset()
+        slots, routes = [], []
+        t = time.perf_counter()
+        with _moe_probe(slots, routes), use_mesh(mesh), torch.no_grad():
+            lg, _ = lm.prefill(local, tokens, cfgs[key])
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        kept, dropped = _slot_sums(slots)
+        out[f"17{key}"] = {"logits": lg.float().cpu(), "prefill_ms": ms,
+                           "peak_gb": peak(),
+                           "launches": dict(flash_mod.launches),
+                           "kept": kept, "dropped": dropped,
+                           "routes": routes}
+        del local, lg
+    torch.save(out, os.path.join(tmp, f"dlm_rank{rank}.pt"))
+
+
+def _assemble_blocks(blocks, coords, spec, sizes):
+    """The whole tensor from each rank's block (host): rank r's block goes
+    at its block index along each dimension's axes (`spec`, physical)."""
+    import math
+    import torch
+    shape = [n * math.prod(sizes[a] for a in (p if isinstance(p, tuple)
+                                              else (p,)))
+             if p is not None else n for n, p in zip(blocks[0].shape, spec)]
+    out = torch.empty(shape, dtype=blocks[0].dtype)
+    for blk, c in zip(blocks, coords):
+        index = []
+        for d, p in enumerate(spec):
+            axes = () if p is None else (p if isinstance(p, tuple) else (p,))
+            i = int(np.ravel_multi_index([c[a] for a in axes],
+                                         [sizes[a] for a in axes])) \
+                if axes else 0
+            n = blk.shape[d]
+            index.append(slice(i * n, (i + 1) * n))
+        out[tuple(index)] = blk
+    return out
+
+
+def distributed_lm_path(smi, dev, smoke=False):
+    """Phase 17: the distributed LM (`runtime.meshctx`, `models.lm` on a
+    mesh) on DLM_WORLD gloo ranks sharing the card (`dev`; on the CPU with
+    `smoke`, the smoke configs at small sizes, nothing timed and no kernel
+    compared: a rehearsal), each sub-phase held to the same work on one
+    rank in this process; then 17d, the example twins.  Returns
+    (flash_attention launches by sub-phase and rank, the fused kernel's
+    launches in 17d's single-device parts, the largest attention error)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import fused_local_phase as kmod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.meshctx import logical_to_spec
+    from repro_torch.tree import tree_map
+
+    on_card = dev.type == "cuda"
+    cfgs = _dlm_configs(smoke)
+    cfg_a, cfg_b = cfgs["a"], cfgs["b"]
+    sizes = _dlm_sizes(smoke)
+    mesh_sizes = dict(zip(("data", "model"), DLM_MESH))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if on_card:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def moe_prefill(key, seed, tokens, **probe):
+        """17c's one-rank prefill of cfgs[key]: (logits on the host, ms,
+        (kept, dropped))."""
+        params = lm.init_params(gen.manual_seed(seed), cfgs[key])
+        slots = []
+        peak_reset()
+        t = time.perf_counter()
+        with _moe_probe(slots, **probe), torch.no_grad():
+            lg, _ = lm.prefill(params, tokens, cfgs[key])
+        sync()
+        return lg.float().cpu(), (time.perf_counter() - t) * 1e3, \
+            _slot_sums(slots)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlm_")
+    try:
+        # one-rank references in this process ------------------------------
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        b, s = sizes["a"]
+        params = lm.init_params(gen.manual_seed(DLM_SEED), cfg_a)
+        tok_a = torch.randint(0, cfg_a.vocab, (b, s), device=dev,
+                              generator=gen.manual_seed(DLM_SEED + 10))
+        with torch.no_grad():                       # warm-up, as the ranks
+            lm.loss_fn(params, {"tokens": tok_a, "labels": tok_a}, cfg_a)
+        peak_reset()
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        t = time.perf_counter()
+        loss, _ = lm.loss_fn(leaves, {"tokens": tok_a, "labels": tok_a},
+                             cfg_a)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, leaves)
+        new, _, om = adamw(DLM_LR).update(grads, adamw(DLM_LR).init(params),
+                                          params)
+        sync()
+        ref_a = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
+                 "ms": (time.perf_counter() - t) * 1e3, "peak": peak(),
+                 "p0": {n: p.detach().cpu() for n, p in
+                        _flat(params).items()},
+                 "grad": {n: g.detach().cpu() for n, g in
+                          _flat(grads).items()},
+                 "new": {n: p.detach().cpu() for n, p in _flat(new).items()}}
+        del params, leaves, grads, new, loss
+        print(f"  17a one rank: {cfg_a.name} cut to {cfg_a.n_layers} layers, "
+              f"{b} x {s}, loss {ref_a['loss']}, grad norm "
+              f"{ref_a['grad_norm']}, step {ref_a['ms']} ms, peak "
+              f"{ref_a['peak']} GB ({smi})")
+
+        length, chunk = sizes["b"]
+        s_loc = length // DLM_WORLD
+        params = lm.init_params(gen.manual_seed(DLM_SEED + 1), cfg_b)
+        cache = {w: torch.empty((cfg_b.n_layers, 1, cfg_b.n_kv_heads, length,
+                                 cfg_b.head_dim), dtype=cfg_b.compute_dtype,
+                                device=dev) for w in ("k", "v")}
+        _fill_long(cache, cfg_b, 0, 0, length, chunk, dev)
+        cache["length"] = length - DLM_LONG_STEPS
+        toks_b = [torch.randint(0, cfg_b.vocab, (), device=dev,
+                                generator=gen.manual_seed(DLM_SEED + 11))]
+        ref_b, ms_b = [], []
+        peak_reset()
+        with torch.no_grad():
+            for _ in range(DLM_LONG_STEPS):
+                sync()
+                t = time.perf_counter()
+                lg, cache = lm.decode_step(params, cache,
+                                           toks_b[-1].view(1, 1), cfg_b)
+                sync()
+                ms_b.append((time.perf_counter() - t) * 1e3)
+                ref_b.append(lg.float().cpu())
+                toks_b.append(lg[0].argmax())
+        peak_b = peak()
+        new_pos = slice(length - DLM_LONG_STEPS, length)
+        written_b = {w: cache[w][:, 0, :, new_pos].float().cpu().clone()
+                     for w in ("k", "v")}
+        # the gate's reach: step 0 again with one rank's slice drawn anew
+        reach = []
+        with torch.no_grad():
+            for r in range(DLM_WORLD):
+                span = (r * s_loc, (r + 1) * s_loc)
+                _fill_long(cache, cfg_b, 0, *span, chunk, dev, draw=1)
+                cache["length"] = length - DLM_LONG_STEPS
+                lg, cache = lm.decode_step(params, cache,
+                                           toks_b[0].view(1, 1), cfg_b)
+                lg = lg.float().cpu()
+                reach.append((float((lg - ref_b[0]).abs().max()
+                                    / ref_b[0].abs().max()),
+                              int(lg[0].argmax())))
+                _fill_long(cache, cfg_b, 0, *span, chunk, dev)
+        cache_gb = (cache["k"].numel() * cache["k"].element_size() * 2
+                    / 1e9)
+        del params, cache, lg
+        print(f"  17b one rank: {cfg_b.name} ({cfg_b.n_layers} layers), a "
+              f"{length}-position cache of {cache_gb} GB, K drawn at "
+              f"{DLM_LONG_KSCALE} sigma, {DLM_LONG_STEPS} greedy steps "
+              f"{ms_b} ms, peak {peak_b} GB ({smi})")
+        for r, (dev_r, tok_r) in enumerate(reach):
+            print(f"  17b reach: rank {r}'s slice drawn anew moves step 0's "
+                  f"logits by {dev_r} of the row's largest (greedy token "
+                  f"{tok_r}, one rank's {int(toks_b[1])})")
+            check(dev_r > DLM_LONG_TOL,
+                  f"17b: a new draw of rank {r}'s slice moves step 0's "
+                  f"logits by {dev_r} > {DLM_LONG_TOL} of the row's largest"
+                  f" (the gate sees every slice)")
+
+        b, s = sizes["c"]
+        tok_c = torch.randint(0, cfgs["c"].vocab, (b, s), device=dev,
+                              generator=gen.manual_seed(DLM_SEED + 12))
+        ref_c, ms_c, (kept, dropped) = moe_prefill("c_local", DLM_SEED + 2,
+                                                   tok_c)
+        print(f"  17c one rank: {cfgs['c_local'].name} cut to "
+              f"{DLM_MOE_LAYERS} layers, fp32, local dispatch over "
+              f"{DLM_MESH[0]} shards, {b} x {s} prefill {ms_c} ms, {kept} "
+              f"slots kept, {dropped} dropped, peak {peak()} GB ({smi})")
+        torch.save({"a": tok_a.cpu(), "b": torch.stack(toks_b).cpu(),
+                    "c": tok_c.cpu()}, os.path.join(tmp, "dlm_tokens.pt"))
+        del tok_a, toks_b
+        peak_reset()
+        phase("17 one-rank references", t0)
+
+        # the ranks ---------------------------------------------------------
+        t0 = time.perf_counter()
+        mp.spawn(_dlm_rank, args=(os.path.join(tmp, "store_17"), tmp,
+                                  dev.type, smoke), nprocs=DLM_WORLD)
+        recs = [torch.load(os.path.join(tmp, f"dlm_rank{r}.pt"),
+                           weights_only=True) for r in range(DLM_WORLD)]
+        phase("17 ranks (17a, 17b, 17c)", t0)
+
+        # 17a gates ---------------------------------------------------------
+        t0 = time.perf_counter()
+        launches = {"17a": {}, "17b": {}, "17c": {}, "17c16": {}}
+        attn_err = 0.0
+        key_a = "bfloat16" if cfg_a.compute_dtype == torch.bfloat16 \
+            else "float32"
+        for r, rec in enumerate(recs):
+            a = rec["17a"]
+            launches["17a"][r] = a["launches"]
+            print(f"  17a rank {r} {rec['coords']}: loss {a['loss']}, grad "
+                  f"norm {a['grad_norm']}, step {a['step_ms']} ms, peak "
+                  f"{a['peak_gb']} GB, launches {a['launches']} ({smi})")
+            check(abs(a["loss"] - ref_a["loss"]) <= DLM_LOSS_TOL,
+                  f"17a rank {r}: loss {a['loss']} within {DLM_LOSS_TOL} of "
+                  f"one rank's {ref_a['loss']}")
+            check(abs(a["grad_norm"] - ref_a["grad_norm"])
+                  <= DLM_NORM_RTOL * ref_a["grad_norm"],
+                  f"17a rank {r}: gradient norm {a['grad_norm']} within "
+                  f"{DLM_NORM_RTOL} of {ref_a['grad_norm']}")
+            check(a["shares"] and set(a["shares"].values()) == {DLM_WORLD},
+                  f"17a rank {r}: holds 1/{DLM_WORLD} of every FSDP x TP "
+                  f"leaf ({sorted(set(a['shares'].values()))})")
+            if on_card:
+                n = a["launches"][key_a]
+                check(n == 2 * cfg_a.n_layers and sum(
+                    a["launches"].values()) == n and len(a["attn"]) == n,
+                      f"17a rank {r}: {n} flash_attention launches, one a "
+                      f"layer forward and one in remat's recompute, each "
+                      f"compared")
+                worst_share = 0.0
+                for i, (qs, ks, share, at, err) in enumerate(a["attn"]):
+                    attn_err = max(attn_err, err)
+                    worst_share = max(worst_share, share)
+                    check(share <= 1, f"17a rank {r}: flash_attention launch"
+                          f" {i} at q {qs}, k/v {ks} == plain within "
+                          f"{ATTN_BF16_FULL} (worst element at {share} of "
+                          f"its limit, {at}; max abs err {err})")
+                print(f"  17a rank {r}: each of its {n} launches at q "
+                      f"{a['attn'][0][0]}, k/v {a['attn'][0][1]} == plain, "
+                      f"worst element at {worst_share:.4f} of its limit")
+        specs = _flat_specs(cfg_a)
+
+        class Axes:
+            axis_names = ("data", "model")
+
+        coords = [rec["coords"] for rec in recs]
+        blocks = [torch.load(os.path.join(tmp, f"dlm_17a_rank{r}.pt"),
+                             weights_only=True) for r in range(DLM_WORLD)]
+        worst, worst_g, moved, agree, low = 0.0, (0.0, ""), 0, 0, (1.0, "")
+        still = []
+        for name, spec in specs.items():
+            pspec = logical_to_spec(spec, Axes)
+            g = _assemble_blocks([blk["grad"][name] for blk in blocks],
+                                 coords, pspec, mesh_sizes).to(dev)
+            ulps = _bf16_ulps(g, ref_a["grad"][name].to(dev), dim=None)
+            worst_g = max(worst_g, (ulps, name))
+            check(ulps <= DLM_GRAD_ULPS, f"17a {name}: the gathered gradient"
+                  f" within {DLM_GRAD_ULPS} bf16 ulps of the leaf's largest "
+                  f"|grad| of one rank's ({ulps} ulps)")
+            got = _assemble_blocks([blk["new"][name] for blk in blocks],
+                                   coords, pspec, mesh_sizes)
+            got, want = got.to(dev).float(), ref_a["new"][name].to(
+                dev).float()
+            p0 = ref_a["p0"][name].to(dev).float()
+            bound = 2 * DLM_LR + 2 ** -6 * torch.maximum(got.abs(),
+                                                         want.abs())
+            share = float(((got - want).abs() / bound).max())
+            worst = max(worst, share)
+            check(share <= 1, f"17a {name}: updated parameters within 2 lr "
+                  f"+ 2 bf16 ulps of the larger of the two (worst at "
+                  f"{share})")
+            m = (want - p0).abs() > DLM_LR / 2
+            same = int(((got - p0).sign() == (want - p0).sign())[m].sum())
+            if not m.any():       # bf16 norms at 1.0: lr is under half an ulp
+                still.append(name)
+                continue
+            leaf = same / int(m.sum())
+            low = min(low, (leaf, name))
+            check(leaf >= DLM_SIGN_SHARE,
+                  f"17a {name}: update signs agree on {leaf} of "
+                  f"{int(m.sum())} moved elements (>= {DLM_SIGN_SHARE})")
+            moved += int(m.sum())
+            agree += same
+        for blk in blocks:
+            blk.clear()
+        print(f"  17a: every gathered gradient leaf == one rank's within "
+              f"{DLM_GRAD_ULPS} bf16 ulps of its largest |grad| (worst "
+              f"{worst_g[0]} ulps, {worst_g[1]}); updated parameters within "
+              f"2 lr + 2 bf16 ulps (a sign flip of a near-zero gradient "
+              f"moves a weight by 2 lr; worst element at {worst:.4f} of "
+              f"it); update signs equal on {agree / max(moved, 1)} of "
+              f"{moved} elements that moved, in every leaf at least "
+              f"{low[0]} ({low[1]}); no element of {len(still)} leaves "
+              f"moved ({', '.join(still)})")
+
+        # 17b gates ---------------------------------------------------------
+        toks_b = torch.load(os.path.join(tmp, "dlm_tokens.pt"),
+                            weights_only=True)["b"]
+        want = torch.cat(ref_b)
+        worst = 0.0
+        for r, rec in enumerate(recs):
+            bb = rec["17b"]
+            launches["17b"][r] = bb["launches"]
+            check(torch.equal(bb["logits"], recs[0]["17b"]["logits"]),
+                  f"17b rank {r}: the same logits as rank 0")
+            check(bb["length"] == length and bb["block"][3] == s_loc,
+                  f"17b rank {r}: cache block {bb['block']}, length "
+                  f"{bb['length']}")
+            print(f"  17b rank {r}: positions [{bb['lo']}, "
+                  f"{bb['lo'] + bb['block'][3]}), block {bb['block']}, "
+                  f"steps {bb['step_ms']} ms, peak {bb['peak_gb']} GB, "
+                  f"launches {bb['launches']}, slots written "
+                  f"{len(bb['written']['k'])} K / {len(bb['written']['v'])}"
+                  f" V ({smi})")
+        got = recs[0]["17b"]["logits"]
+        for i in range(DLM_LONG_STEPS):
+            row = want[i].abs().max()
+            err = float((got[i] - want[i]).abs().max())
+            worst = max(worst, err / float(row))
+            check(err <= DLM_LONG_TOL * float(row),
+                  f"17b step {i}: logits within {DLM_LONG_TOL} of the row's "
+                  f"largest |logit| {float(row)} (max abs err {err})")
+            check(int(got[i].argmax()) == int(toks_b[i + 1]),
+                  f"17b step {i}: greedy token {int(got[i].argmax())} == "
+                  f"one rank's {int(toks_b[i + 1])}")
+        new_slots = [(layer, p) for layer in range(cfg_b.n_layers)
+                     for p in range(new_pos.start, new_pos.stop)]
+        worst_w = 0.0
+        for w in ("k", "v"):
+            found = sorted((layer, p, r) for r, rec in enumerate(recs)
+                           for layer, p, _ in rec["17b"]["written"][w])
+            owners = {r for _, _, r in found}
+            check([(layer, p) for layer, p, _ in found] == new_slots
+                  and len(owners) == 1 and all(
+                      recs[r]["17b"]["lo"] <= p < recs[r]["17b"]["lo"]
+                      + s_loc for _, p, r in found),
+                  f"17b: the {w.upper()} slots that changed are the new "
+                  f"tokens' {new_pos.start}..{new_pos.stop - 1} in every "
+                  f"layer, on the one rank holding them (found "
+                  f"{len(found)} on ranks {sorted(owners)})")
+            for layer, p, val in recs[owners.pop()]["17b"]["written"][w]:
+                ref_w = written_b[w][layer]
+                err = float((val - ref_w[:, p - new_pos.start]).abs().max()
+                            / ref_w.abs().max())
+                worst_w = max(worst_w, err)
+                check(err <= DLM_LONG_TOL,
+                      f"17b: layer {layer}'s {w.upper()} at {p} within "
+                      f"{DLM_LONG_TOL} of one rank's largest written value "
+                      f"({err})")
+        print(f"  17b: {DLM_LONG_STEPS} context-parallel steps over "
+              f"{DLM_WORLD} ranks == one rank: tokens "
+              f"{toks_b[1:].tolist()}, worst logit error {worst} of the "
+              f"row's largest; the new tokens' K and V written on one rank "
+              f"only, within {worst_w} of one rank's")
+
+        # 17c gates ---------------------------------------------------------
+        kept_sum = dropped_sum = 0
+        for r, rec in enumerate(recs):
+            c = rec["17c"]
+            launches["17c"][r] = c["launches"]
+            i = rec["coords"]["data"]
+            if rec["coords"]["model"] == 0:
+                kept_sum += c["kept"]
+                dropped_sum += c["dropped"]
+            w = ref_c[i:i + 1]
+            err = float((c["logits"] - w).abs().max())
+            check(err <= DLM_MOE_TOL * float(w.abs().max()),
+                  f"17c rank {r}: logits of data shard {i} within "
+                  f"{DLM_MOE_TOL} of the row's largest |logit| (max abs err "
+                  f"{err})")
+            if on_card:
+                check(c["launches"]["float32"] == DLM_MOE_LAYERS,
+                      f"17c rank {r}: one flash_attention launch a layer")
+            print(f"  17c rank {r} {rec['coords']}: prefill "
+                  f"{c['prefill_ms']} ms, peak {c['peak_gb']} GB, kept "
+                  f"{c['kept']}, dropped {c['dropped']}, max abs err {err}, "
+                  f"launches {c['launches']} ({smi})")
+        check((kept_sum, dropped_sum) == (kept, dropped),
+              f"17c: kept / dropped slots {kept_sum} / {dropped_sum} == one "
+              f"rank's {kept} / {dropped}")
+
+        # 17c in bf16: the one-rank run on its own routing, then on the
+        # ranks' experts
+        row = {rec["coords"]["data"]: rec["17c16"] for rec in recs
+               if rec["coords"]["model"] == 0}
+        for rec in recs:
+            check(all(torch.equal(x, y) for x, y in zip(
+                rec["17c16"]["routes"], row[rec["coords"]["data"]]["routes"]
+            )), f"17c bf16: rank {rec['coords']} routes as its data shard's "
+                f"model rank 0")
+        ranks_routes = [torch.cat([row[i]["routes"][layer]
+                                   for i in range(DLM_MESH[0])])
+                        for layer in range(DLM_MOE_LAYERS)]
+        own = []
+        ref16, _, own_slots = moe_prefill("c16_local", DLM_SEED + 3, tok_c,
+                                          routes=own)
+        flips = [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                 for x, y in zip(own, ranks_routes)]
+        ref16, ms16, slots16 = moe_prefill("c16_local", DLM_SEED + 3, tok_c,
+                                           replay=list(ranks_routes))
+        n_tok = ranks_routes[0].shape[0]
+        print(f"  17c bf16 one rank: {b} x {s} prefill {ms16} ms on the "
+              f"ranks' experts; on its own routing kept / dropped "
+              f"{own_slots}, experts differing from the ranks' on {flips} "
+              f"of {n_tok} tokens a layer ({smi})")
+        for layer, f in enumerate(flips):
+            check(f <= DLM_MOE_FLIP_BUDGET * n_tok,
+                  f"17c bf16 layer {layer}: the routing differs from the "
+                  f"ranks' on {f} of {n_tok} tokens (budget "
+                  f"{DLM_MOE_FLIP_BUDGET})")
+        kept16 = dropped16 = 0
+        worst = 0.0
+        for i, c in row.items():
+            kept16 += c["kept"]
+            dropped16 += c["dropped"]
+            ulps = _bf16_ulps(c["logits"], ref16[i:i + 1])
+            worst = max(worst, ulps)
+            check(ulps <= DLM_MOE_BF16_ULPS,
+                  f"17c bf16 data shard {i}: logits within "
+                  f"{DLM_MOE_BF16_ULPS} bf16 ulps of the row's largest "
+                  f"|logit| ({ulps})")
+        for r, rec in enumerate(recs):
+            c = rec["17c16"]
+            launches["17c16"][r] = c["launches"]
+            if on_card:
+                check(c["launches"]["bfloat16"] == DLM_MOE_LAYERS,
+                      f"17c bf16 rank {r}: one flash_attention launch a "
+                      f"layer")
+            print(f"  17c bf16 rank {r} {rec['coords']}: prefill "
+                  f"{c['prefill_ms']} ms, peak {c['peak_gb']} GB, kept "
+                  f"{c['kept']}, dropped {c['dropped']}, launches "
+                  f"{c['launches']} ({smi})")
+        check((kept16, dropped16) == slots16,
+              f"17c bf16: kept / dropped slots {kept16} / {dropped16} == one"
+              f" rank's on the same experts {slots16}")
+        print(f"  17c bf16: logits == one rank's on the same experts within "
+              f"{worst} bf16 ulps of the row's largest (<= "
+              f"{DLM_MOE_BF16_ULPS})")
+        phase("17 gates", t0)
+
+        # 17d: the example twins on gloo ranks sharing the card -----------
+        t0 = time.perf_counter()
+        sys.path.insert(0, os.path.join(os.path.dirname(_src_path()),
+                                        "examples"))
+        import graph_cc_torch
+        import quickstart_torch
+        for k in kmod.launches:
+            kmod.launches[k] = 0
+        argv = ["--ranks", str(DLM_EXAMPLE_RANKS), "--device", dev.type]
+        quickstart_torch.main(argv)
+        graph_cc_torch.main(argv)
+        fused = dict(kmod.launches)
+        check(not on_card or sum(fused.values()) >= 1,
+              "17d: the twins' single-device parts launched the fused kernel")
+        print(f"  17d: both twins' assertions hold on {DLM_EXAMPLE_RANKS} "
+              f"gloo ranks; fused launches in this process {fused}")
+        phase("17d example twins", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, fused, attn_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4126,6 +4959,9 @@ def main():
 
     # 16. the GNN substrate ------------------------------------------------
     gnn_launches = gnn_path(smi, dev)
+
+    # 17. the distributed LM and the example twins ---------------------------
+    dlm_launches, dlm_fused, dlm_err = distributed_lm_path(smi, dev)
     for row in kernels:
         if row["name"] == "flash_attention/bfloat16":
             row["launches_lm"] = {k: v["bfloat16"]
@@ -4145,6 +4981,14 @@ def main():
         mod, _, key = row["name"].partition("/")
         counts = gnn_launches[mod]
         row["launches_gnn"] = counts[key] if key else sum(counts.values())
+        if mod == "flash_attention":
+            row["launches_distributed_lm"] = {
+                sub: {r: n[key] for r, n in ranks.items()}
+                for sub, ranks in dlm_launches.items()}
+            if key == "bfloat16":
+                row["max_abs_err"] = max(row["max_abs_err"], dlm_err)
+        if mod == "fused_local_phase":
+            row["launches_examples"] = dlm_fused[key]
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,11 @@ prompts from a `torch.Generator` seeded with `--seed`, runs one untimed
 generation (kernel build, warm-up), then `LM_RUNS` timed ones, each a
 prefill and `--gen - 1` greedy decode steps, timed with CUDA events on a
 card (the host clock on the CPU); it prints JAX's two lines and a JSON
-stats line, and returns the median decode tokens/s.
+stats line, and returns the median decode tokens/s.  Under `torchrun`
+with more than one rank the LM mode binds `launch.mesh.make_smoke_mesh()`
+as JAX's does: the weights are cut to each rank's FSDP x TP blocks, the
+prompts to its "dp" block, and the KV cache to its block of the sequence
+(`lm.CACHE_LOGICAL`); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -36,10 +40,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import join_torchrun, make_smoke_mesh
 from repro_torch.models import lm
+from repro_torch.runtime.meshctx import LOGICAL_AXES, use_mesh
 
 LM_RUNS = 3        # timed generations of the LM mode
 
@@ -86,14 +93,24 @@ def serve_lm(args):
         raise ValueError(f"serve.py's LM mode drives LM archs, not "
                          f"{args.arch!r} (family {mod.FAMILY!r})")
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
-    dev = resolve_device(args.device)
+    dev = join_torchrun(resolve_device(args.device))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(gen, cfg)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_smoke_mesh(device=dev)
+        cfg = lm.bind_mesh(cfg, mesh)
+        params = lm.shard_params(params, cfg, mesh)
+        prompts = mesh.block(prompts, LOGICAL_AXES["dp"], 0)
 
-    generate(params, prompts, cfg, min(args.gen, 2))     # warm-up
-    runs = [generate(params, prompts, cfg, args.gen) for _ in range(LM_RUNS)]
+    with use_mesh(mesh):
+        generate(params, prompts, cfg, min(args.gen, 2))     # warm-up
+        runs = [generate(params, prompts, cfg, args.gen)
+                for _ in range(LM_RUNS)]
+    if mesh is not None and mesh.rank:
+        return None
     toks, logits = runs[-1][0], runs[-1][1]
     prefill_ms = [r[2] for r in runs]
     step_ms = [r[3] / max(args.gen - 1, 1) for r in runs]

@@ -9,9 +9,22 @@ on the device) -> the train step (`lm.loss_fn`, its gradient, AdamW with a
 warmup-cosine schedule) -> the fault-tolerant driver (periodic checkpoints
 written on a thread, restart on failure, straggler monitor) -> a final
 evaluation of 4 fresh batches.  `--chaos` injects one failure at 60% of the
-steps.  It drives the LM archs, dense and MoE.  JAX's launcher binds a
-smoke mesh; this one runs on one device, so there is none (ROADMAP.md
-Queue 1 item 5d).  `main` returns (eval loss, the driver's report)."""
+steps.  It drives the LM archs, dense and MoE.  `main` returns (eval
+loss, the driver's report).
+
+On one process nothing is sharded.  Under `torchrun` (or in a process
+whose default group is initialised with more than one rank) it binds
+`launch.mesh.make_smoke_mesh()` (or the `mesh` given to `main`) as JAX's
+launcher does: parameters and moments are cut to each rank's FSDP x TP
+blocks (`lm.shard_params`), each rank trains on its "dp" block of the
+batch, the gradient norm is the global one (`lm.global_norm_fn`), and
+checkpoints hold the whole state (`CheckpointManager(specs=...)`).
+`torchrun` ranks join over NCCL with a card each, over gloo when they
+share one card or run on the CPU:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \\
+      --arch deepseek-moe-16b --device cpu
+"""
 from __future__ import annotations
 
 import argparse
@@ -21,29 +34,45 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.mesh import join_torchrun, make_smoke_mesh
 from repro_torch.models import lm
-from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.optim import adamw, global_norm, warmup_cosine
 from repro_torch.runtime.driver import TrainDriver
+from repro_torch.runtime.meshctx import LOGICAL_AXES, use_mesh
 from repro_torch.tree import tree_map
 
 
-def _to_device(batch: dict, dev) -> dict:
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+def _to_device(batch: dict, dev, mesh=None) -> dict:
+    """A numpy batch on `dev`; on a mesh this rank's "dp" block of it."""
+    out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if mesh is not None:
+        dp = LOGICAL_AXES["dp"]
+        out = {k: mesh.block(v, dp, 0) for k, v in out.items()}
+    return out
 
 
-def make_step(cfg, opt, dev):
+def state_specs(cfg):
+    """Logical specs of the (params, AdamW state) training state."""
+    pspecs = lm.param_logical_specs(cfg)
+    return (pspecs, {"m": pspecs, "v": pspecs, "step": ()})
+
+
+def make_step(cfg, opt, dev, mesh=None):
     """The train step (state, numpy batch) -> (state, metrics): the loss,
     its gradient by autograd and one optimizer update, which returns new
-    tensors, so `state` is never changed in place."""
+    tensors, so `state` is never changed in place.  On a mesh the state
+    holds this rank's blocks and the step runs under it."""
     def step_fn(state, batch):
         params, opt_state = state
         leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = lm.loss_fn(leaves, _to_device(batch, dev), cfg)
+        loss, metrics = lm.loss_fn(leaves, _to_device(batch, dev, mesh),
+                                   cfg)
         loss.backward()
         grads = tree_map(lambda t: t.grad, leaves)
         params, opt_state, om = opt.update(grads, opt_state, params)
@@ -53,7 +82,9 @@ def make_step(cfg, opt, dev):
     return step_fn
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
+    """Run the launcher on `argv`.  `mesh`: the mesh to bind when the
+    default group has several ranks (default `make_smoke_mesh()`)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true",
@@ -79,13 +110,26 @@ def main(argv=None):
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
     if args.seq % cfg.loss_chunks:
         cfg = dataclasses.replace(cfg, loss_chunks=1)
-    dev = resolve_device(args.device)
-    print(f"[train] {cfg.name}: {cfg.n_params():,} params "
-          f"({cfg.n_active_params():,} active) on {dev}")
+    dev = join_torchrun(resolve_device(args.device))
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        mesh = None
+    elif mesh is None:
+        mesh = make_smoke_mesh(device=dev)
+    first = mesh is None or mesh.rank == 0
+    if first:
+        print(f"[train] {cfg.name}: {cfg.n_params():,} params "
+              f"({cfg.n_active_params():,} active) on {dev}"
+              + (f", mesh {mesh.shape}" if mesh else ""))
 
     params = lm.init_params(torch.Generator(device=dev).manual_seed(
         args.seed), cfg)
-    opt = adamw(warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
+    norm_fn = global_norm
+    if mesh is not None:
+        cfg = lm.bind_mesh(cfg, mesh)
+        params = lm.shard_params(params, cfg, mesh)
+        norm_fn = lm.global_norm_fn(cfg, mesh)
+    opt = adamw(warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01,
+                norm_fn=norm_fn)
 
     def make_data(start):
         return TokenStream(cfg.vocab, args.batch, args.seq, seed=args.seed,
@@ -100,20 +144,24 @@ def main(argv=None):
         return False
 
     driver = TrainDriver(
-        step_fn=make_step(cfg, opt, dev),
+        step_fn=make_step(cfg, opt, dev, mesh),
         init_state=(params, opt.init(params)), make_data=make_data,
-        ckpt=CheckpointManager(args.ckpt_dir, keep_last=2),
+        ckpt=CheckpointManager(args.ckpt_dir, keep_last=2,
+                               specs=state_specs(cfg) if mesh else None),
         ckpt_every=args.ckpt_every,
         failure_injector=injector if args.chaos else None,
         log_every=max(args.steps // 20, 1))
-    state, report = driver.run(args.steps)
+    with use_mesh(mesh):
+        state, report = driver.run(args.steps)
 
-    # final eval on fresh batches
-    stream = make_data(10_000)
-    with torch.no_grad():
-        losses = [float(lm.loss_fn(state[0], _to_device(next(stream), dev),
-                                   cfg)[0]) for _ in range(4)]
-    print(f"[train] done: eval_loss={np.mean(losses):.4f} report={report}")
+        # final eval on fresh batches
+        stream = make_data(10_000)
+        with torch.no_grad():
+            losses = [float(lm.loss_fn(state[0], _to_device(
+                next(stream), dev, mesh), cfg)[0]) for _ in range(4)]
+    if first:
+        print(f"[train] done: eval_loss={np.mean(losses):.4f} "
+              f"report={report}")
     return np.mean(losses), report
 
 

@@ -19,8 +19,22 @@ The MoE FFN has JAX's three dispatches.  "global": one stable sort of all
 T*k (token, expert) slots, capacity C = max(ceil(T*k/E*capacity_factor),
 1) a expert, the overflow dropped; "local": the same per data shard of
 T/dp_shards tokens; "shard_map": JAX's manually partitioned path, which
-runs the global path when no mesh with a "model" axis is bound, as here
-(one device; the multi-rank expert split is ROADMAP.md Queue 1 item 5d).
+runs the global path when no mesh is bound.
+
+On a mesh (`runtime.meshctx.use_mesh`), `forward`, `loss_fn`, `prefill`,
+`decode_step` and `_moe_ffn` run JAX's sharded layout over torch.distributed
+ranks with explicit collectives (the section "on a mesh" below): the
+parameters are each rank's FSDP x TP blocks (`param_logical_specs`,
+`shard_params`), all-gathered over "data" a layer at a time, their
+gradients reduce-scattered; heads, d_ff, the vocabulary and the experts
+are split over "model" (Q, K, V, gate and up column-parallel, wo and
+w_down row-parallel), each rank launching the attention kernel on its own
+heads; the batch is split over "dp" and, with `seq_shard`, the residual
+stream's sequence over "model" (Megatron SP); the embedding and the loss
+are vocab-parallel; the MoE runs `_moe_ffn_shardmap`'s partition; decode
+takes a KV cache whose batch and sequence are sharded (`CACHE_LOGICAL`,
+`LONG_CACHE_LOGICAL`) and merges the ranks' attention by log-sum-exp.  No
+rank gathers the whole model.
 
 Where the port and JAX part on purpose:
   * JAX's prefill attention is `flash_attention_ref` in chunks of
@@ -28,10 +42,12 @@ Where the port and JAX part on purpose:
     last whole chunk (S = 1025 drops the last one; ROADMAP.md Queue 3).
     The kernel and its plain version read every key, and take every prompt
     length;
-  * JAX's sharding hints (`constrain`) change no value on one device and
-    are dropped, and so are `scan_unroll` (an eager loop has no scan),
-    `fsdp` and `seq_shard` (one device holds every parameter and the whole
-    sequence).  `remat` (a layer), `remat_attn` (the attention call) and
+  * JAX's sharding hints (`constrain`) are the explicit collectives of
+    the mesh path, and `scan_unroll` is dropped (an eager loop has no
+    scan); `fsdp` and `seq_shard` act on a mesh only.  On a mesh, the MoE's
+    "local" dispatch with dp_shards equal to the data shards, and "global"
+    with one data shard, run the shard_map partition (the same values);
+    another raises.  `remat` (a layer), `remat_attn` (the attention call) and
     `remat_loss` (the loss) are `torch.utils.checkpoint` regions while
     gradients are on: the region's forward runs again in the backward,
     launching the attention kernel again, and changes no value;
@@ -48,6 +64,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -55,6 +72,10 @@ from repro_torch._device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nn.core import (cross_entropy_chunked, dense_init,
                                  embed_init, rms_norm, rope)
+from repro_torch.runtime.meshctx import (LOGICAL_AXES, gather_blocks,
+                                         get_current_mesh, local_block,
+                                         logical_to_spec, shard_count)
+from repro_torch.tree import tree_map
 
 MOE_DISPATCHES = ("global", "local", "shard_map")
 
@@ -90,6 +111,8 @@ class LMConfig:
     loss_chunks: int = 8
     remat_attn: bool = False     # recompute the attention call
     remat_loss: bool = False     # recompute the loss
+    seq_shard: bool = True       # on a mesh: sequence-parallel residual
+    fsdp: bool = True            # on a mesh: parameters sharded over "data"
 
     @property
     def head_dim(self):
@@ -181,14 +204,20 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor, dtype):
 def attention_inputs(x, lp, cfg: LMConfig, positions):
     """The layer's q (B, H, S, dh), k and v (B, Hkv, S, dh) of x (B, S, D),
     rotary embedding applied to q and k."""
+    return _project_qkv(x, lp["wq"], lp["wk"], lp["wv"], cfg.n_heads,
+                        cfg.n_kv_heads, cfg, positions)
+
+
+def _project_qkv(x, wq, wk, wv, h, hkv, cfg: LMConfig, positions):
+    """q (B, h, S, dh), k and v (B, hkv, S, dh) of x (B, S, D) through the
+    projections wq (D, h dh), wk and wv (D, hkv dh); rotary on q and k."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cdt = cfg.compute_dtype
-    q = rope((x @ lp["wq"].to(cdt)).reshape(b, s, h, dh), positions,
+    dh, cdt = cfg.head_dim, cfg.compute_dtype
+    q = rope((x @ wq.to(cdt)).reshape(b, s, h, dh), positions,
              cfg.rope_theta)
-    k = rope((x @ lp["wk"].to(cdt)).reshape(b, s, hkv, dh), positions,
+    k = rope((x @ wk.to(cdt)).reshape(b, s, hkv, dh), positions,
              cfg.rope_theta)
-    v = (x @ lp["wv"].to(cdt)).reshape(b, s, hkv, dh)
+    v = (x @ wv.to(cdt)).reshape(b, s, hkv, dh)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -315,6 +344,12 @@ def _moe_ffn(x2d, lp, cfg: LMConfig):
     `dispatch` "global" and "shard_map" sort all T tokens at once; "local"
     sorts each of `dp_shards` runs of T / dp_shards tokens apart, each with
     its own capacity."""
+    mesh = get_current_mesh()
+    if mesh is not None:
+        sh = _Sharded(cfg, mesh)
+        _check_dispatch(sh)
+        y, aux = _sh_moe(mesh.copy_to(x2d, sh.tp), lp, sh)
+        return mesh.all_reduce(y, sh.tp), aux
     mcfg, cdt = cfg.moe, cfg.compute_dtype
     T = x2d.shape[0]
     E, k = mcfg.n_experts, mcfg.top_k
@@ -372,7 +407,10 @@ def _train_layer(x, lp, cfg: LMConfig, positions, impl: str):
 def forward(params, tokens, cfg: LMConfig, impl: str = "auto"):
     """tokens: (B, S) -> (hidden states (B, S, D) after the final norm,
     the layers' mean aux loss).  With `cfg.remat` and gradients on, each
-    layer is a checkpoint region."""
+    layer is a checkpoint region.  On a mesh: `_sh_forward`."""
+    mesh = get_current_mesh()
+    if mesh is not None:
+        return _sh_forward(params, tokens, _Sharded(cfg, mesh), impl)
     x = _embed(params["embed"], tokens, cfg.compute_dtype)
     positions = torch.arange(tokens.shape[1], device=x.device).expand(
         tokens.shape)
@@ -393,7 +431,11 @@ def loss_fn(params, batch, cfg: LMConfig, aux_weight: float = 0.01,
     """Token-mean next-token cross entropy (`cfg.loss_chunks` chunks, fp32
     logits) plus `aux_weight` times the mean MoE aux loss.  batch:
     "tokens" and "labels" (B, S), label < 0 = padding.  Returns (loss,
-    {"ce", "aux"})."""
+    {"ce", "aux"}).  On a mesh the loss is the same on every rank."""
+    mesh = get_current_mesh()
+    if mesh is not None:
+        return _sh_loss_fn(params, batch, _Sharded(cfg, mesh), aux_weight,
+                           impl)
     h, aux = forward(params, batch["tokens"], cfg, impl)
     unembed = params["unembed"].to(cfg.compute_dtype)
     args = (h, unembed, batch["labels"], cfg.loss_chunks)
@@ -427,6 +469,9 @@ def prefill(params, tokens, cfg: LMConfig, max_len: int | None = None,
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
+    mesh = get_current_mesh()
+    if mesh is not None:
+        return _sh_prefill(params, tokens, cfg, max_len, impl, mesh)
     cdt = cfg.compute_dtype
     x = _embed(params["embed"], tokens, cdt)
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -445,7 +490,10 @@ def decode_step(params, cache, tokens, cfg: LMConfig):
     `cache["length"]` (clamped into the cache, as JAX's
     `dynamic_update_slice` clamps it; the rotary position is not clamped).
     Returns (logits (B, V), the cache with length + 1; its K and V tensors
-    are updated in place)."""
+    are updated in place).  On a mesh: `_sh_decode_step`."""
+    mesh = get_current_mesh()
+    if mesh is not None:
+        return _sh_decode_step(params, cache, tokens, cfg, mesh)
     cdt = cfg.compute_dtype
     b = tokens.shape[0]
     pos = int(cache["length"])
@@ -465,3 +513,486 @@ def decode_step(params, cache, tokens, cfg: LMConfig):
     h = rms_norm(x[:, 0], params["ln_f"])
     return (h @ params["unembed"].to(cdt),
             {"k": cache["k"], "v": cache["v"], "length": pos + 1})
+
+
+# --- on a mesh (runtime.meshctx) ------------------------------------------
+#
+# With a `Mesh` bound by `use_mesh`, `forward`, `loss_fn`, `prefill`,
+# `decode_step` and `_moe_ffn` take each rank's own blocks of the parameters
+# (`shard_params`) and of the batch (its "dp" block) and run JAX's 2-D
+# FSDP x TP layout with explicit collectives.  A tensor replicated over an
+# axis that the computation is split over enters through `copy_to` (its
+# gradient summed there), as an unmapped input of JAX's `shard_map` is
+# transposed; every other sum is one of the collectives below.
+
+
+def param_logical_specs(cfg: LMConfig):
+    """Logical spec tree matching `init_params`' structure (JAX's
+    `param_logical_specs` with the layers a list: each layer's spec is
+    JAX's stacked spec without its leading scan dim).  `cfg.fsdp=False`
+    drops the data-axis parameter sharding."""
+    fs = "fsdp" if cfg.fsdp else None
+    layer = {"ln1": (None,), "ln2": (None,), "wq": (fs, "tp"),
+             "wk": (fs, "tp"), "wv": (fs, "tp"), "wo": ("tp", fs)}
+    if cfg.moe:
+        layer.update(router=(fs, None), we_gate=("tp", fs, None),
+                     we_up=("tp", fs, None), we_down=("tp", None, fs),
+                     ws_gate=(fs, "tp"), ws_up=(fs, "tp"),
+                     ws_down=("tp", fs))
+    else:
+        layer.update(w_gate=(fs, "tp"), w_up=(fs, "tp"), w_down=("tp", fs))
+    return {"embed": ("tp", fs),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)],
+            "ln_f": (None,), "unembed": (fs, "tp")}
+
+
+def check_mesh(cfg: LMConfig, mesh) -> None:
+    """Raise ValueError unless `mesh` splits every sharded dimension of the
+    model: heads, KV heads, d_ff, the vocabulary and the experts over
+    "model", d_model over "data" (with fsdp)."""
+    tp, fs = mesh.axis_size("model"), mesh.axis_size("data")
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "vocab": cfg.vocab, "d_ff": cfg.d_ff}
+    if cfg.moe:
+        dims.update(n_experts=cfg.moe.n_experts,
+                    shared_d_ff=cfg.moe.n_shared * cfg.d_ff)
+    bad = [f"{k} = {v}" for k, v in dims.items() if v % tp]
+    if cfg.fsdp and cfg.d_model % fs:
+        bad.append(f"d_model = {cfg.d_model} (over data = {fs})")
+    if bad:
+        raise ValueError(f"a mesh with model = {tp} does not split "
+                         f"{', '.join(bad)}")
+
+
+def bind_mesh(cfg: LMConfig, mesh) -> LMConfig:
+    """`cfg` with the MoE's `dp_shards` set to the mesh's data shards, as
+    JAX's cells bind it (`repro/launch/cells.py:94–97`)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dp_shards=mesh.axis_size(LOGICAL_AXES["dp"])))
+
+
+def shard_params(params, cfg: LMConfig, mesh):
+    """Each rank's own blocks of the whole parameters (`init_params`, or
+    `interop.lm_params_from_jax`) under `param_logical_specs` on `mesh`,
+    as copies, so the whole tree can be freed."""
+    check_mesh(cfg, mesh)
+    return tree_map(lambda t, spec: local_block(
+        t, logical_to_spec(spec, mesh), mesh).clone(), params,
+        param_logical_specs(cfg))
+
+
+def unshard_params(params, cfg: LMConfig, mesh):
+    """The whole parameters from every rank's blocks (each leaf gathered;
+    for checks and checkpoints, not the model's path)."""
+    return tree_map(lambda t, spec: gather_blocks(
+        t, logical_to_spec(spec, mesh), mesh), params,
+        param_logical_specs(cfg))
+
+
+def global_norm_fn(cfg: LMConfig, mesh):
+    """The global gradient norm of a sharded parameter tree, for the
+    optimizers' `norm_fn`: each leaf's sum of squares divided by the ranks
+    holding the same block, one sum over every rank."""
+    specs = param_logical_specs(cfg)
+
+    def norm(grads):
+        parts = []
+        tree_map(lambda g, spec: parts.append(
+            torch.sum(torch.square(g.float())) * (shard_count(
+                logical_to_spec(spec, mesh), mesh) / mesh.size)),
+            grads, specs)
+        return torch.sqrt(mesh.reduce(sum(parts), mesh.axis_names))
+
+    return norm
+
+
+class _Sharded:
+    """The mesh's axes as the LM uses them."""
+
+    def __init__(self, cfg: LMConfig, mesh, batch_split: bool = True):
+        check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
+        self.dp = mesh.axes(LOGICAL_AXES["dp"])
+        self.fsdp = mesh.axes(LOGICAL_AXES["fsdp"])
+        self.tp = mesh.axes(LOGICAL_AXES["tp"])
+        self.tp_n = mesh.axis_size(self.tp)
+        self.j = mesh.index(self.tp)
+        self.sp = cfg.seq_shard and self.tp_n > 1
+        self.batch_split = batch_split        # the batch is split over dp
+        self.lspec = param_logical_specs(cfg)["layers"][0] \
+            if cfg.n_layers else {}
+
+    def use(self, w, logical, model_split: bool = False):
+        """A parameter block ready to use: all-gathered over "data" on its
+        fsdp dim (gradient reduce-scattered), its gradient summed over the
+        dp axes it is not sharded over, and over "model" where it is
+        replicated there and `model_split` (the computation is)."""
+        over = self.tp if model_split and "tp" not in logical else ()
+        for d, l in enumerate(logical):
+            if l == "fsdp":
+                w = self.mesh.all_gather(w, self.fsdp, d)
+                over += tuple(a for a in self.dp if a not in self.fsdp)
+                break
+        else:
+            over += self.dp
+        return self.mesh.copy_to(w, over)
+
+    def w(self, lp, name, model_split: bool = False):
+        return self.use(lp[name], self.lspec[name], model_split)
+
+    def enter(self, x):
+        """The residual stream into a TP region: the sequence all-gathered
+        over "model" (SP), or the replicated stream marked for f."""
+        if self.sp:
+            return self.mesh.all_gather(x, self.tp, 1)
+        return self.mesh.copy_to(x, self.tp)
+
+    def leave(self, x):
+        """A TP region's partial sums out: reduce-scattered on the
+        sequence (SP), or all-reduced (g)."""
+        if self.sp:
+            return self.mesh.reduce_scatter(x, self.tp, 1)
+        return self.mesh.all_reduce(x, self.tp)
+
+
+def _sh_embed(table, tokens, sh: _Sharded, leave: bool = True):
+    """The vocab-parallel embedding: this rank's rows of the ids (JAX's
+    wrap-and-clamp rule first), zeros for the others' rows, then summed
+    over "model" (`leave`)."""
+    cdt = sh.cfg.compute_dtype
+    w = sh.use(table, ("tp", "fsdp" if sh.cfg.fsdp else None))
+    vl = w.shape[0]
+    v = vl * sh.tp_n
+    ids = torch.where(tokens < 0, tokens + v, tokens).clamp(0, v - 1).long()
+    local = ids - sh.j * vl
+    hit = (local >= 0) & (local < vl)
+    x = torch.where(hit[..., None], w[local.clamp(0, vl - 1)].to(cdt),
+                    torch.zeros((), dtype=cdt, device=w.device))
+    return sh.leave(x) if leave else sh.mesh.all_reduce(x, sh.tp)
+
+
+def _sh_attention(xf, lp, sh: _Sharded, positions, impl):
+    """This rank's heads: q, k, v through its columns of wq, wk, wv, the
+    flash_attention kernel on them, then its rows of wo.  Returns (the
+    partial sums over "model", the local heads' (k, v))."""
+    cfg = sh.cfg
+    h, hkv = cfg.n_heads // sh.tp_n, cfg.n_kv_heads // sh.tp_n
+    q, k, v = _project_qkv(xf, sh.w(lp, "wq"), sh.w(lp, "wk"),
+                           sh.w(lp, "wv"), h, hkv, cfg, positions)
+
+    def attn(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True, impl=impl,
+                                   check_tiles=False)
+
+    if cfg.remat_attn and torch.is_grad_enabled():
+        o = checkpoint(attn, q, k, v, use_reentrant=False)
+    else:
+        o = attn(q, k, v)
+    b, _, s, dh = o.shape
+    out = o.transpose(1, 2).reshape(b, s, h * dh) @ sh.w(lp, "wo").to(
+        cfg.compute_dtype)
+    return out, (k, v)
+
+
+def _sh_moe(x2d, lp, sh: _Sharded):
+    """JAX's `_moe_ffn_shardmap` on rank (i, j): x2d holds data shard i's
+    t_loc tokens (the same on every rank of the row).  Route them, C from
+    t_loc; take experts [j E/tp, (j+1) E/tp) of the dispatch table, gather
+    their slots, run their SwiGLU, add each token's slots back in expert
+    order; plus this rank's columns of the shared experts.  Returns (the
+    partial sums over "model", the aux loss from counts and probabilities
+    summed over the mesh as JAX's psums sum them)."""
+    cfg, mesh = sh.cfg, sh.mesh
+    mcfg, cdt = cfg.moe, cfg.compute_dtype
+    E, k, tp = mcfg.n_experts, mcfg.top_k, sh.tp_n
+    split = not sh.batch_split and mesh.axis_size(sh.dp) > 1
+    if split:                     # tokens replicated over dp: take a block
+        x2d = mesh.split(x2d, sh.dp, 0)
+    t_loc, d = x2d.shape
+    e_loc = E // tp
+    probs, topi, topv = _route(x2d, {"router": sh.w(lp, "router", True)},
+                               cfg)
+    C = capacity(t_loc, mcfg)
+    table, wtab, slots = _dispatch_tables(topi, topv, t_loc, E, C)
+    rows = slice(sh.j * e_loc, (sh.j + 1) * e_loc)
+    tbl = table.reshape(E, C)[rows]
+    wt = wtab.reshape(E, C)[rows]
+    xp = torch.cat([x2d, x2d.new_zeros(1, d)])
+    experts = {n: sh.w(lp, n) for n in ("we_gate", "we_up", "we_down")}
+    out = _expert_ffn(xp[tbl.long()], experts, cdt) * wt[..., None].to(cdt)
+    n_loc = e_loc * C
+    out = torch.cat([out.reshape(n_loc, d), out.new_zeros(1, d)])
+    loc = slots - sh.j * n_loc
+    loc = torch.where((loc >= 0) & (loc < n_loc), loc, n_loc)
+    loc = torch.sort(loc, dim=1).values       # expert order, others last
+    y = out[loc[:, 0]]
+    for i in range(1, k):
+        y = y + out[loc[:, i]]
+    hs = F.silu(x2d @ sh.w(lp, "ws_gate").to(cdt)) * \
+        (x2d @ sh.w(lp, "ws_up").to(cdt))
+    y = y + hs @ sh.w(lp, "ws_down").to(cdt)
+    counts = torch.zeros(E, device=x2d.device).index_add(
+        0, topi.reshape(-1), torch.ones(t_loc * k, device=x2d.device))
+    counts = mesh.all_reduce(mesh.all_reduce(counts / tp, sh.tp), sh.dp)
+    psum = mesh.all_reduce(mesh.all_reduce(probs.sum(0) / tp, sh.tp), sh.dp)
+    T = t_loc * mesh.axis_size(sh.dp)
+    aux = E * torch.sum(counts / (T * k) * (psum / T))
+    if split:
+        y = mesh.all_gather(y, sh.dp, 0)
+    return y, aux
+
+
+def _check_dispatch(sh: _Sharded):
+    mcfg = sh.cfg.moe
+    dp = sh.mesh.axis_size(sh.dp)
+    if mcfg.dispatch == "shard_map" or dp == 1 or (
+            mcfg.dispatch == "local" and mcfg.dp_shards == dp):
+        return
+    raise ValueError(
+        f"on a mesh the MoE runs JAX's shard_map dispatch (each data "
+        f"shard sorts its own tokens); dispatch {mcfg.dispatch!r} with "
+        f"dp_shards {mcfg.dp_shards} over {dp} data shards sorts otherwise")
+
+
+def _sh_ffn(xf, lp, sh: _Sharded):
+    """The FFN of xf (B, S, D) on this rank: partial sums over "model"
+    and the aux loss (0 for the dense SwiGLU)."""
+    cdt = sh.cfg.compute_dtype
+    if sh.cfg.moe is None:
+        h = F.silu(xf @ sh.w(lp, "w_gate").to(cdt)) * \
+            (xf @ sh.w(lp, "w_up").to(cdt))
+        return (h @ sh.w(lp, "w_down").to(cdt),
+                torch.zeros((), device=xf.device))
+    _check_dispatch(sh)
+    b, s, d = xf.shape
+    y, aux = _sh_moe(xf.reshape(b * s, d), lp, sh)
+    return y.reshape(b, s, d), aux
+
+
+def _sh_layer(x, lp, sh: _Sharded, positions, impl):
+    """One causal block on this rank: x is its (B/dp, S/tp if SP, D)
+    block; returns (out, aux, the local heads' (k, v) over the whole
+    sequence)."""
+    xn = rms_norm(x, sh.w(lp, "ln1", sh.sp))
+    a, kv = _sh_attention(sh.enter(xn), lp, sh, positions, impl)
+    x = x + sh.leave(a)
+    xn = rms_norm(x, sh.w(lp, "ln2", sh.sp))
+    f, aux = _sh_ffn(sh.enter(xn), lp, sh)
+    return x + sh.leave(f), aux, kv
+
+
+def _sh_train_layer(x, lp, sh, positions, impl):
+    return _sh_layer(x, lp, sh, positions, impl)[:2]
+
+
+def _sh_forward(params, tokens, sh: _Sharded, impl):
+    """`forward` on a mesh: tokens are this rank's dp block (B/dp, S);
+    returns (its block of the final hidden states, the mean aux)."""
+    cfg = sh.cfg
+    if sh.sp and tokens.shape[1] % sh.tp_n:
+        raise ValueError(f"sequence parallelism needs S = {tokens.shape[1]} "
+                         f"to split over model = {sh.tp_n}")
+    x = _sh_embed(params["embed"], tokens, sh)
+    positions = torch.arange(tokens.shape[1], device=x.device).expand(
+        tokens.shape)
+    remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
+    for lp in params["layers"]:
+        if remat:
+            x, aux = checkpoint(_sh_train_layer, x, lp, sh, positions, impl,
+                                use_reentrant=False)
+        else:
+            x, aux = _sh_train_layer(x, lp, sh, positions, impl)
+        auxs.append(aux)
+    h = rms_norm(x, sh.use(params["ln_f"], (None,), sh.sp))
+    return h, torch.stack(auxs).mean()
+
+
+def _sh_cross_entropy(h, w, labels, sh: _Sharded, n_chunks: int):
+    """`cross_entropy_chunked` over vocab-parallel logits: h (B/dp, S, D)
+    whole on the sequence, w this rank's (D, V/tp) columns; each chunk's
+    max, sum of exponentials and gold logit are reduced over "model", so
+    no rank holds a (T, V) block, and the sums over "dp"."""
+    mesh = sh.mesh
+    b, s, _ = h.shape
+    if s % n_chunks:
+        n_chunks = 1
+    cs = s // n_chunks
+    vl = w.shape[1]
+    w32 = w.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c in range(n_chunks):
+        logits = h[:, c * cs:(c + 1) * cs].float() @ w32
+        ll = labels[:, c * cs:(c + 1) * cs]
+        m = mesh.reduce(logits.detach().amax(-1), sh.tp,
+                        dist.ReduceOp.MAX)
+        se = mesh.all_reduce(torch.exp(logits - m[..., None]).sum(-1), sh.tp)
+        lse = torch.log(se) + m
+        li = ll.clamp(min=0).long() - sh.j * vl
+        hit = (li >= 0) & (li < vl)
+        gold = torch.gather(logits, -1, li.clamp(0, vl - 1)[..., None])
+        gold = mesh.all_reduce(torch.where(hit, gold[..., 0], 0.0), sh.tp)
+        valid = ll >= 0
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum(dtype=torch.int32)
+    tot = mesh.all_reduce(tot, sh.dp)
+    cnt = mesh.reduce(cnt, sh.dp)
+    return tot / cnt.clamp(min=1)
+
+
+def _sh_loss_fn(params, batch, sh: _Sharded, aux_weight, impl):
+    cfg = sh.cfg
+    h, aux = _sh_forward(params, batch["tokens"], sh, impl)
+    unembed = sh.use(params["unembed"], ("fsdp" if cfg.fsdp else None,
+                                         "tp")).to(cfg.compute_dtype)
+    args = (sh.enter(h), unembed, batch["labels"], sh, cfg.loss_chunks)
+    if cfg.remat_loss and torch.is_grad_enabled():
+        ce = checkpoint(_sh_cross_entropy, *args, use_reentrant=False)
+    else:
+        ce = _sh_cross_entropy(*args)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def _sh_logits(h, params, sh: _Sharded):
+    """Whole logits (B, V) of h (B, D) replicated over "model": this
+    rank's vocabulary columns, all-gathered."""
+    cfg = sh.cfg
+    u = sh.use(params["unembed"], ("fsdp" if cfg.fsdp else None, "tp"))
+    return sh.mesh.gather(h @ u.to(cfg.compute_dtype), sh.tp, -1)
+
+
+CACHE_LOGICAL = (None, "dp", None, "sp", None)   # JAX's `_cache_logical`
+LONG_CACHE_LOGICAL = (None, None, None, "ep_all", None)   # long_500k
+
+
+def _cache_axes(logical, mesh):
+    """(batch axes, sequence axes) of a KV cache's logical spec (L, B, Hkv,
+    S, dh); raises for a spec that shards another dimension."""
+    spec = logical_to_spec(logical, mesh)
+    if len(spec) != 5 or any(spec[i] is not None for i in (0, 2, 4)):
+        raise ValueError(f"a KV cache shards its batch and sequence only, "
+                         f"not {logical}")
+    return mesh.axes(spec[1]), mesh.axes(spec[3])
+
+
+def shard_kv_cache(cache, mesh, logical=CACHE_LOGICAL):
+    """Each rank's block of a whole KV cache (`prefill`'s, or JAX's) under
+    `logical`, as copies; the block records its spec as "logical"."""
+    spec = logical_to_spec(logical, mesh)
+    _cache_axes(logical, mesh)
+    return {"k": local_block(cache["k"], spec, mesh).clone(),
+            "v": local_block(cache["v"], spec, mesh).clone(),
+            "length": int(cache["length"]), "logical": tuple(logical)}
+
+
+def _sh_prefill(params, tokens, cfg: LMConfig, max_len, impl, mesh):
+    """`prefill` on a mesh: tokens are this rank's dp block; the cache is
+    its block under `CACHE_LOGICAL` (batch on "dp", sequence on "sp"):
+    each layer's local heads' K and V all-gathered over "model" on the
+    heads and cut to this rank's positions.  Returns whole logits."""
+    sh = _Sharded(cfg, mesh)
+    b, s = tokens.shape
+    batch_axes, seq_axes = _cache_axes(CACHE_LOGICAL, mesh)
+    n_seq = mesh.axis_size(seq_axes)
+    if max_len % n_seq:
+        raise ValueError(f"max_len {max_len} does not split over "
+                         f"{seq_axes} = {n_seq}")
+    if sh.sp and s % sh.tp_n:
+        raise ValueError(f"sequence parallelism needs S = {s} to split "
+                         f"over model = {sh.tp_n}")
+    x = _sh_embed(params["embed"], tokens, sh)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    s_loc = max_len // n_seq
+    lo = mesh.index(seq_axes) * s_loc
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s_loc, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                              device=x.device),
+             "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                              device=x.device),
+             "length": s, "logical": CACHE_LOGICAL}
+    n = max(min(s, lo + s_loc) - lo, 0)       # prompt positions held here
+    for l, lp in enumerate(params["layers"]):
+        x, _, kv = _sh_layer(x, lp, sh, positions, impl)
+        for name, t in zip(("k", "v"), kv):   # every head, this block's
+            cache[name][l, :, :, :n] = mesh.gather(t, sh.tp, 1)[
+                :, :, lo:lo + n]
+    last = x[:, -1]
+    if sh.sp:             # the last position is on the last model rank
+        last = mesh.gather(last[:, None], sh.tp, 1)[:, -1]
+    h = rms_norm(last, sh.use(params["ln_f"], (None,)))
+    return _sh_logits(h, params, sh), cache
+
+
+def _cp_attention(q, k_cache, v_cache, cache_len, lo, sh: _Sharded,
+                  seq_axes):
+    """Context-parallel decode attention: q (B, H, 1, dh) with every head,
+    k/v_cache this rank's positions [lo, lo + S_loc) of every KV head.
+    Each rank scores its positions in fp32 (K and V repeated over each GQA
+    group, as `_cached_attention`), the max over the sequence axes is
+    shared, and each rank's sum of exponentials and unnormalised output
+    are summed there (a log-sum-exp merge)."""
+    cfg, mesh = sh.cfg, sh.mesh
+    group = cfg.n_heads // cfg.n_kv_heads
+    kk = k_cache.repeat_interleave(group, dim=1).float()
+    vv = v_cache.repeat_interleave(group, dim=1).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
+    scores = scores / math.sqrt(cfg.head_dim)
+    pos = torch.arange(k_cache.shape[2], device=q.device) + lo
+    scores = torch.where(pos < cache_len, scores, -math.inf)
+    m = mesh.reduce(scores.amax(-1, keepdim=True), seq_axes,
+                    dist.ReduceOp.MAX)
+    p = torch.exp(scores - m)
+    den = mesh.reduce(p.sum(-1, keepdim=True), seq_axes)
+    num = mesh.reduce(torch.einsum("bhqk,bhkd->bhqd", p, vv), seq_axes)
+    return (num / den).to(cfg.compute_dtype)
+
+
+def _sh_decode_step(params, cache, tokens, cfg: LMConfig, mesh):
+    """`decode_step` on a mesh with this rank's cache block under
+    cache["logical"] (default: the whole cache on every rank).  The new
+    token's K and V (every head, all-gathered over "model") are written
+    on the rank that holds position `length`; attention is
+    `_cp_attention` over the cache's sequence axes; the rest is TP.
+    tokens: (B_loc, 1), the cache block's batch."""
+    logical = cache.get("logical", (None,) * 5)
+    batch_axes, seq_axes = _cache_axes(logical, mesh)
+    dp = mesh.axes(LOGICAL_AXES["dp"])
+    sh = _Sharded(cfg, mesh, batch_split=set(dp) <= set(batch_axes))
+    cdt = cfg.compute_dtype
+    b = tokens.shape[0]
+    if cache["k"].shape[1] != b:
+        raise ValueError(f"tokens hold {b} rows; the cache block holds "
+                         f"{cache['k'].shape[1]}")
+    pos = int(cache["length"])
+    s_loc = cache["k"].shape[3]
+    s_max = s_loc * mesh.axis_size(seq_axes)
+    slot = min(pos, s_max - 1)
+    lo = mesh.index(seq_axes) * s_loc
+    mine = lo <= slot < lo + s_loc
+    h, hkv = cfg.n_heads // sh.tp_n, cfg.n_kv_heads // sh.tp_n
+    x = _sh_embed(params["embed"], tokens, sh, leave=False)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    for l, lp in enumerate(params["layers"]):
+        xn = mesh.copy_to(rms_norm(x, sh.w(lp, "ln1")), sh.tp)
+        q, kx, vx = (mesh.gather(t, sh.tp, 1) for t in _project_qkv(
+            xn, sh.w(lp, "wq"), sh.w(lp, "wk"), sh.w(lp, "wv"), h, hkv, cfg,
+            positions))
+        kc, vc = cache["k"][l], cache["v"][l]
+        if mine:
+            kc[:, :, slot - lo] = kx[:, :, 0].to(kc.dtype)
+            vc[:, :, slot - lo] = vx[:, :, 0].to(vc.dtype)
+        o = _cp_attention(q, kc, vc, pos + 1, lo, sh, seq_axes)
+        o = o[:, sh.j * h:(sh.j + 1) * h].transpose(1, 2).reshape(
+            b, 1, h * cfg.head_dim)
+        x = x + mesh.all_reduce(o @ sh.w(lp, "wo").to(cdt), sh.tp)
+        xn = mesh.copy_to(rms_norm(x, sh.w(lp, "ln2")), sh.tp)
+        f, _ = _sh_ffn(xn, lp, sh)
+        x = x + mesh.all_reduce(f, sh.tp)
+    hid = rms_norm(x[:, 0], sh.use(params["ln_f"], (None,)))
+    return (_sh_logits(hid, params, sh),
+            {"k": cache["k"], "v": cache["v"], "length": pos + 1,
+             "logical": tuple(logical)})
+

@@ -30,9 +30,11 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(the tree scaled by min(1, max_norm / max(norm, 1e-9)), the norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm_fn=global_norm):
+    """(the tree scaled by min(1, max_norm / max(norm, 1e-9)), the norm);
+    `norm_fn` gives the norm (a sharded tree's needs its mesh:
+    `models.lm.global_norm_fn`)."""
+    norm = norm_fn(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 
@@ -55,8 +57,9 @@ def _lr_fn(lr):
 
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: float = 1.0,
-          moment_dtype=torch.float32) -> Optimizer:
-    """lr: a float or a schedule fn(step tensor) -> lr."""
+          moment_dtype=torch.float32, norm_fn=global_norm) -> Optimizer:
+    """lr: a float or a schedule fn(step tensor) -> lr; norm_fn: the
+    gradient tree's global norm (`clip_by_global_norm`)."""
     lr_fn = _lr_fn(lr)
 
     def init(params):
@@ -68,9 +71,9 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def update(grads, state, params):
         step = state["step"] + 1
         if grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, grad_clip, norm_fn)
         else:
-            gnorm = global_norm(grads)
+            gnorm = norm_fn(grads)
         lr_t = lr_fn(step)
         stepf = step.float()
         bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
@@ -94,8 +97,9 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-def sgd(lr, momentum: float = 0.9, grad_clip: float = 0.0) -> Optimizer:
-    """SGD with momentum in fp32 (no weight decay)."""
+def sgd(lr, momentum: float = 0.9, grad_clip: float = 0.0,
+        norm_fn=global_norm) -> Optimizer:
+    """SGD with momentum in fp32 (no weight decay); norm_fn as adamw's."""
     lr_fn = _lr_fn(lr)
 
     def init(params):
@@ -106,9 +110,9 @@ def sgd(lr, momentum: float = 0.9, grad_clip: float = 0.0) -> Optimizer:
     def update(grads, state, params):
         step = state["step"] + 1
         if grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, grad_clip, norm_fn)
         else:
-            gnorm = global_norm(grads)
+            gnorm = norm_fn(grads)
         lr_t = lr_fn(step)
         new_m = tree_map(lambda m, g: m * momentum + g.float(), state["m"],
                          grads)

@@ -14,12 +14,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterator, Optional
+from typing import TYPE_CHECKING, Any, Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.checkpoint import CheckpointManager
 from repro_torch.tree import tree_leaves
+
+if TYPE_CHECKING:
+    from repro_torch.checkpoint import CheckpointManager
 
 
 class InjectedFailure(RuntimeError):
@@ -56,7 +59,8 @@ class TrainDriver:
     verbose: bool = True
 
     def _log(self, *a):
-        if self.verbose:
+        if self.verbose and (not dist.is_initialized() or
+                             dist.get_rank() == 0):
             print("[driver]", *a, flush=True)
 
     def run(self, n_steps: int):

@@ -1109,3 +1109,170 @@ def test_gnn_on_card_equals_cpu(cuda, arch):
         _close(got, want, 1e-4 * float(want.abs().max()) + 1e-12)
     assert counts == [dict(m.launches) for m in (kmod, steepest_mod, bpc_mod,
                                                  flash_mod, bag_mod)]
+
+
+# --- the LM on a mesh: two gloo ranks sharing the card ------------------------
+
+MESH_LR = 1e-3
+
+
+def _mesh_cfgs():
+    """(llama smoke, deepseek smoke with shard_map, its one-rank "local"
+    twin with dp_shards 2), fp32."""
+    from repro_torch import configs
+    dense = configs.get("llama3.2-1b").smoke_config()
+    moe = configs.get("deepseek-moe-16b").smoke_config()
+    shard = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, dispatch="shard_map"))
+    local = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, dispatch="local", dp_shards=2))
+    return dense, shard, local
+
+
+def _mesh_step(params, batch, cfg, mesh):
+    """One AdamW step: (loss, gradients, updated parameters); on a mesh
+    from each rank's blocks, gathered whole."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, global_norm
+    from repro_torch.runtime.meshctx import LOGICAL_AXES, use_mesh
+    from repro_torch.tree import tree_map
+    if mesh is not None:
+        params = lm.shard_params(params, cfg, mesh)
+        batch = {k: mesh.block(v, LOGICAL_AXES["dp"], 0)
+                 for k, v in batch.items()}
+    opt = adamw(MESH_LR, norm_fn=global_norm if mesh is None
+                else lm.global_norm_fn(cfg, mesh))
+    with use_mesh(mesh):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(leaves, batch, cfg)
+        loss.backward()
+        grads = tree_map(lambda t: t.grad, leaves)
+        new, _, _ = opt.update(grads, opt.init(params), params)
+    if mesh is not None:
+        grads = lm.unshard_params(grads, cfg, mesh)
+        new = lm.unshard_params(new, cfg, mesh)
+    return (float(loss.detach()),
+            *(tree_map(lambda t: t.detach().cpu(), t) for t in (grads, new)))
+
+
+def _mesh_rank(rank, world, tmp):
+    """A rank of `mesh_ranks`: the sharded step on (1, 2) (TP + SP) and on
+    (2, 1) (data parallel + FSDP), context-parallel decode of the cache
+    sequence over both ranks on (1, 2), and the shard_map MoE on (2, 1)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.models import lm
+    from repro_torch.runtime.meshctx import Mesh, use_mesh
+    from repro_torch.tree import tree_map
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=world, rank=rank)
+    dev = torch.device("cuda")
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True)
+    inp = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                   else t, inp)
+    dense, shard, _ = _mesh_cfgs()
+    meshes = {"tp": Mesh((1, 2), ("data", "model"), dev),
+              "dp": Mesh((2, 1), ("data", "model"), dev)}
+    out = {}
+    for name, mesh in meshes.items():
+        out[f"step/{name}"] = _mesh_step(inp["dense"], inp["batch"], dense,
+                                         mesh)
+    mesh = meshes["tp"]
+    cache = lm.shard_kv_cache(inp["cache"], mesh, lm.LONG_CACHE_LOGICAL)
+    with use_mesh(mesh), torch.no_grad():
+        logits, cache = lm.decode_step(lm.shard_params(inp["dense"], dense,
+                                                       mesh),
+                                       cache, inp["next"], dense)
+    out["decode"] = (logits.cpu(), cache["length"])
+    mesh = meshes["dp"]
+    spec = lm.param_logical_specs(shard)["layers"][0]
+    from repro_torch.runtime.meshctx import local_block, logical_to_spec
+    lp = {k: local_block(v, logical_to_spec(spec[k], mesh), mesh)
+          for k, v in inp["moe_layer"].items()}
+    with use_mesh(mesh), torch.no_grad():
+        y, aux = lm._moe_ffn(mesh.block(inp["moe_x"], "data", 0), lp, shard)
+    out["moe"] = (mesh.gather(y, "data", 0).cpu(), float(aux))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """Two gloo ranks sharing the card (`_mesh_rank`) and the same work on
+    one rank in this process: ({name: rank 0's result}, {name: one
+    rank's})."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import torch.multiprocessing as mp
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    tmp = tmp_path_factory.mktemp("mesh_ranks")
+    dev = torch.device("cuda")
+    dense, _, local = _mesh_cfgs()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = lm.init_params(gen, dense)
+    tok = torch.randint(0, dense.vocab, (4, 16), generator=gen, device=dev)
+    batch = {"tokens": tok, "labels": tok.roll(1, 1)}
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, tok, dense, max_len=24)
+    nxt = logits.argmax(-1)[:, None]
+    mparams = lm.init_params(gen, local)
+    moe_x = torch.randn((32, local.d_model), generator=gen, device=dev)
+    inputs = {"dense": params, "batch": batch, "cache": dict(cache),
+              "next": nxt, "moe_layer": mparams["layers"][1],
+              "moe_x": moe_x}
+    torch.save(tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor)
+                        else t, inputs), tmp / "inputs.pt")
+    want = {"step": _mesh_step(params, batch, dense, None)}
+    with torch.no_grad():
+        cache = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in cache.items()}
+        want["decode"] = lm.decode_step(params, cache, nxt, dense)[0].cpu()
+        y, aux = lm._moe_ffn(moe_x, mparams["layers"][1], local)
+    want["moe"] = (y.cpu(), float(aux))
+    mp.spawn(_mesh_rank, args=(2, str(tmp)), nprocs=2)
+    got = torch.load(tmp / "rank0.pt", weights_only=True)
+    return got, want
+
+
+@pytest.mark.parametrize("mesh", ["tp", "dp"])
+def test_mesh_sharded_step_on_two_ranks_equals_one(mesh_ranks, mesh):
+    """The sharded AdamW step on two gloo ranks sharing the card, on (1, 2)
+    (TP + SP, the attention kernel on each rank's heads) and on (2, 1)
+    (FSDP + data parallel), against the same step on one rank: loss within
+    1e-5, each gradient leaf within 1e-5 of its largest |grad|, and every
+    updated parameter within 2 lr, all but 0.1% of them within 1e-5.
+    Adam divides a gradient by its own size, so a near-zero gradient
+    summed in another order can move its weight by up to 2 lr."""
+    from repro_torch.tree import tree_leaves
+    got, want = mesh_ranks
+    loss, grads, params = got[f"step/{mesh}"]
+    wloss, wgrads, wparams = want["step"]
+    assert abs(loss - wloss) <= 1e-5
+    for a, b in zip(tree_leaves(grads), tree_leaves(wgrads)):
+        _close(a, b, 1e-5 * float(b.abs().max()))
+    far = n = 0
+    for a, b in zip(tree_leaves(params), tree_leaves(wparams)):
+        _close(a, b, 2 * MESH_LR)
+        far += int(((a - b).abs() > 1e-5).sum())
+        n += b.numel()
+    assert far <= 1e-3 * n, (far, n)
+
+
+def test_mesh_context_parallel_decode_on_two_ranks_equals_one(mesh_ranks):
+    """Decode with the cache's sequence over two gloo ranks (TP on the
+    weights) == one rank's decode_step within 1e-5; length + 1."""
+    got, want = mesh_ranks
+    logits, length = got["decode"]
+    assert length == 17
+    _close(logits, want["decode"], 1e-5)
+
+
+def test_mesh_shard_map_moe_on_two_ranks_equals_local(mesh_ranks):
+    """The shard_map MoE over two data shards == the "local" dispatch with
+    dp_shards 2 on one rank: y within 1e-5, aux within 1e-6."""
+    got, want = mesh_ranks
+    (y, aux), (wy, waux) = got["moe"], want["moe"]
+    _close(y, wy, 1e-5)
+    assert abs(aux - waux) <= 1e-6
