@@ -215,7 +215,22 @@ seconds:
      `examples/quickstart_torch.py` and `examples/graph_cc_torch.py` on
      two gloo ranks sharing the card.  The attention rows carry the
      launches as `launches_distributed_lm`, the fused rows 17d's
-     single-device launches as `launches_examples`.
+     single-device launches as `launches_examples`;
+ 18. the launch tools (`repro_torch.launch.cells` / `dryrun`) and the
+     sharded BST and GNNs: 18a JAX's six dry-run test cells at full
+     configs on their meshes, each in a process of its own (a fake
+     process group of 256 or 512 ranks, rank 0's step on the meta
+     device): per-rank GiB, GFLOP and collective MiB, and JAX's pod-axis
+     rule on kimi-k2 and stablelm-12b train_4k; 18b the dry run's args +
+     temp of two one-rank cells (llama3.2-1b train_4k at 4 x 2,048 and
+     dpc_grid grid_512) against the card's peak over the same step
+     (LAUNCH_* bounds); 18c BST's full config on four gloo ranks sharing
+     the card, mesh (2, 2): serve_bulk logits and the retrieval of 10^6
+     candidates == one rank's, the bag kernel launched on every rank; 18d
+     MeshGraphNet 512^2 (forward, gradients, one AdamW step's parameters)
+     and GAT on phase 16's minibatch_lg batch (forward, gradients) on the
+     same ranks == one rank.  Every row of the
+     kernels line carries the phase's launches as `launches_launch`.
 
 The last three lines are the `nvidia-smi` line, one JSON object describing
 every kernel, and `{"ok": true, "device": {...}}`.  Any failure raises and
@@ -414,6 +429,28 @@ DLM_MOE_LAYERS, DLM_MOE_BATCH, DLM_MOE_SEQ, DLM_MOE_TOL = 2, 2, 2048, 1e-4
 DLM_MOE_BF16_ULPS, DLM_MOE_FLIP_BUDGET = 8, 0.05
 # 17d: the example twins on DLM_EXAMPLE_RANKS gloo ranks sharing the card
 DLM_EXAMPLE_RANKS = 2
+# phase 18: the launch tools.  18a: JAX's six dry-run test cells
+# (`tests/test_dryrun_cells.py`) at their full configs on their meshes.
+LAUNCH_CELLS = (("llama3_2_1b", "train_4k", "--single-pod"),
+                ("kimi_k2_1t", "decode_32k", "--multi-pod"),
+                ("gat_cora", "ogb_products", "--single-pod"),
+                ("bst", "retrieval_cand", "--multi-pod"),
+                ("dpc_grid", "cc_512", "--single-pod"),
+                ("dpc_grid", "cc_ragged", "--single-pod"))
+# 18b: the dry run's args + temp of a one-rank cell against the card's peak
+# over the same step (PERF.md section 5, written before the first run): the
+# LM within LAUNCH_LM_MEM_TOL of it; the DPC cell's meta trace keeps every
+# compaction at its full length (`_meta.nonzero`), so its prediction is an
+# upper bound, at most LAUNCH_DPC_MEM_MAX times the peak
+LAUNCH_LM_BATCH, LAUNCH_LM_MEM_TOL, LAUNCH_DPC_MEM_MAX = (4, 2048), 0.15, 3.0
+# 18c-d: BST and the GNNs on LAUNCH_WORLD gloo ranks sharing the card, mesh
+# LAUNCH_MESH, each held to one rank (GNNs: GNN_FWD_TOL of the largest
+# output; gradients LAUNCH_GRAD_TOL of each leaf's largest |grad|, the
+# GNNs' gradient gate; MeshGraphNet's AdamW step: every parameter within
+# 2 GNN_LR of one rank's, as a near-zero gradient's sign may flip between
+# the two sums, and at most LAUNCH_FLIP_SHARE of the updates flipped)
+LAUNCH_WORLD, LAUNCH_MESH, LAUNCH_SEED = 4, (2, 2), 23
+LAUNCH_GRAD_TOL, LAUNCH_FLIP_SHARE = 1e-4, 1e-3
 
 
 def phase(name, t0):
@@ -3713,8 +3750,9 @@ def gnn_path(smi, dev, smoke=False):
     and step ms (CUDA events), peak GB; a profile of one 16c training step;
     16d's per-step component counts == the CPU run's.  Every kernel launch
     counter reads 0 after it.  `smoke` runs the smoke configs on small
-    graphs (a CPU rehearsal, nothing timed).  Returns the launches counted
-    over the phase, by kernel module."""
+    graphs (a CPU rehearsal, nothing timed).  Returns (the launches counted
+    over the phase, by kernel module; the minibatch_lg host batch, which
+    phase 18d reuses)."""
     import dataclasses
     import importlib.util
     import torch
@@ -3821,6 +3859,7 @@ def gnn_path(smi, dev, smoke=False):
                               n_classes=shp["n_classes"])
     del indptr, indices, feats, labels, sampler
     run("16a minibatch_lg", cfg, host)
+    minibatch = host                    # phase 18d's sampled batch
     numbers["16a minibatch_lg"].update(csr_build_s=csr_s, sample_s=sample_s,
                                        csr_edges=n_csr, real=real)
     print(f"  16a minibatch_lg host: random_csr({shp['n_nodes']}, "
@@ -3904,7 +3943,7 @@ def gnn_path(smi, dev, smoke=False):
           "phase 16 launched no kernel (the GNN path reaches none)")
     for k, v in numbers.items():
         print(f"  {k}: {v}")
-    return launches
+    return launches, minibatch
 
 
 def _dlm_configs(smoke):
@@ -4657,6 +4696,483 @@ def distributed_lm_path(smi, dev, smoke=False):
     return launches, fused, attn_err
 
 
+def _launch_predictions(out, smoke):
+    """Phase 18b's dry runs and 18a's pod-axis rule, in a process of their
+    own (fake process groups, the meta device): rank 0's memory record of
+    the one-rank llama3.2-1b train_4k cell at LAUNCH_LM_BATCH and of the
+    dpc_grid grid_512 cell, and the per-rank argument bytes of kimi_k2_1t
+    and stablelm_12b train_4k on both production meshes.  Written to
+    `out`/predictions.json."""
+    import torch
+    sys.path.insert(0, _src_path())
+    from repro_torch import _meta, configs
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.meshctx import Mesh
+    rec = {"args": {}}
+    with dryrun.fake_world(1):
+        mesh = Mesh((1, 1), ("data", "model"), "meta")
+        b, s = (2, 64) if smoke else LAUNCH_LM_BATCH
+        cell = cells.build_lm_cell(
+            "llama3_2_1b", configs.get("llama3_2_1b"), "train_4k",
+            {"kind": "train", "batch": b, "seq": s}, mesh, smoke)
+        rec["lm"] = dryrun.trace_cell(cell)[:2]
+        cell = cells.build_cell("dpc_grid", "grid_512", mesh, smoke=smoke)
+        rec["dpc"] = dryrun.trace_cell(cell)[:2]
+    for label, (multi_pod, size) in dryrun.MESHES.items():
+        with dryrun.fake_world(size):
+            mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+            for arch in ("kimi_k2_1t", "stablelm_12b"):
+                cell = cells.build_cell(arch, "train_4k", mesh, smoke=smoke)
+                rec["args"][f"{arch}@{label}"] = sum(
+                    _meta.nbytes(t) for t in torch.utils._pytree.tree_leaves(
+                        cell.local(cell.arg_shapes))
+                    if isinstance(t, torch.Tensor))
+    with open(os.path.join(out, "predictions.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _launch_rank(rank, store, tmp, device, smoke):
+    """Phase 18c-d's ranks on mesh LAUNCH_MESH: BST's serve_bulk forward
+    and retrieval (the bag launches counted), MeshGraphNet's forward,
+    loss, gradients and one AdamW step, GAT minibatch_lg's forward, loss
+    and gradients, each on this rank's blocks; records to
+    `tmp`/launch_rank<r>.pt."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.interop import gnn_batch_from_numpy
+    from repro_torch.kernels import segment_bag as bag_mod
+    from repro_torch.models import bst, gnn
+    from repro_torch.runtime.meshctx import Mesh, use_mesh
+    from repro_torch.tree import tree_map
+
+    _rank_setup(rank, LAUNCH_WORLD, store, "gloo", device)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    mesh = Mesh(LAUNCH_MESH, ("data", "model"), dev)
+    inp = torch.load(os.path.join(tmp, "launch_inputs.pt"),
+                     weights_only=False)
+    out = {"coords": mesh.coords}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 18c: BST
+    cfg = getattr(configs.get("bst"), "smoke_config" if smoke
+                  else "full_config")()
+    params = bst.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    local = bst.shard_params(params, cfg, mesh)
+    del params
+    batch = {k: mesh.block(v.to(dev), ("data",), 0)
+             for k, v in inp["bst_batch"].items()}
+    retr = {k: v.to(dev) for k, v in inp["bst_retrieval"].items()}
+    retr["candidates"] = mesh.block(retr["candidates"], ("data",), 1)
+    with use_mesh(mesh), torch.no_grad():
+        bst.forward(local, batch, cfg)                      # warm-up
+        sync()
+        for k in bag_mod.launches:
+            bag_mod.launches[k] = 0
+        t = time.perf_counter()
+        logits = bst.forward(local, batch, cfg)
+        sync()
+        out["bst_ms"] = (time.perf_counter() - t) * 1e3
+        out["bst_launches"] = dict(bag_mod.launches)
+        out["bst_logits"] = mesh.gather(logits, ("data",), 0).cpu()
+        t = time.perf_counter()
+        vals, ids = bst.retrieval_step(local, retr, cfg, top_k=100)
+        sync()
+        out["retrieval_ms"] = (time.perf_counter() - t) * 1e3
+    out["retrieval"] = (vals.cpu(), ids.cpu())
+    del local, batch, retr, logits
+    # 18d: MeshGraphNet forward and one AdamW step, GAT minibatch_lg
+    for key, arch in (("mgn", "meshgraphnet"), ("gat", "gat_cora")):
+        cfg = inp[f"{key}_cfg"]
+        params = tree_map(lambda t: t.to(dev), inp[f"{key}_params"])
+        graph = gnn.shard_batch(gnn_batch_from_numpy(inp[f"{key}_graph"],
+                                                     dev), mesh)
+        with use_mesh(mesh):
+            with torch.no_grad():
+                t = time.perf_counter()
+                y = gnn.apply(params, graph, cfg)
+                sync()
+                out[f"{key}_fwd_ms"] = (time.perf_counter() - t) * 1e3
+                out[f"{key}_out"] = mesh.gather(y, mesh.axis_names, 0).cpu()
+            leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+            t = time.perf_counter()
+            loss, _ = gnn.loss_fn(leaves, graph, cfg)
+            loss.backward()
+            grads = tree_map(lambda t: t.grad, leaves)
+            if key == "mgn":
+                new = _gnn_adamw_step(params, grads)
+            sync()
+            out[f"{key}_step_ms"] = (time.perf_counter() - t) * 1e3
+        if key == "mgn":
+            out["mgn_new"] = tree_map(lambda t: t.cpu(), new)
+            del new
+        out[f"{key}_loss"] = float(loss.detach())
+        out[f"{key}_grads"] = tree_map(lambda t: t.cpu(), grads)
+        out[f"{key}_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                 if on_card else None)
+        del params, graph, leaves, grads, loss, y
+    torch.save(out, os.path.join(tmp, f"launch_rank{rank}.pt"))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def _gnn_adamw_step(params, grads):
+    """18d's one AdamW step from a fresh state: the new parameters."""
+    from repro_torch.optim import adamw
+    opt = adamw(GNN_LR, weight_decay=0.01)
+    return opt.update(grads, opt.init(params), params)[0]
+
+
+def _step_agree(got, want, lr):
+    """(max |got - want| over the leaves, the share of elements whose
+    update differs by more than lr: a flipped sign moves one by 2 lr)."""
+    from repro_torch.tree import tree_leaves
+    diffs = [(a.float() - b.float()).abs()
+             for a, b in zip(tree_leaves(got), tree_leaves(want))]
+    return (max(float(d.max()) for d in diffs),
+            sum(int((d > lr).sum()) for d in diffs)
+            / sum(d.numel() for d in diffs))
+
+
+def _leafwise_err(got, want):
+    """max over leaves of max |got - want| / max |want|."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def launch_path(smi, dev, minibatch, smoke=False):
+    """Phase 18: the launch tools and the sharded BST and GNNs.  18a: JAX's
+    six dry-run test cells (LAUNCH_CELLS) at full configs on their meshes,
+    each through `python -m repro_torch.launch.dryrun` in a process of its
+    own (a fake process group of 256 or 512 ranks, rank 0's step on the
+    meta device), all at once: per-rank GiB (args + temp), GFLOP and
+    collective MiB; and JAX's pod-axis rule (the per-rank argument bytes
+    of kimi_k2_1t and stablelm_12b train_4k on 2 x 256 no larger than on
+    256).  18b: on a one-rank mesh, the llama3.2-1b train_4k cell at
+    LAUNCH_LM_BATCH and the dpc_grid grid_512 cell (a one-rank NCCL
+    group), each step on the card with all five kernels' counts set to 0
+    just before it and read just after, the dry run's args + temp
+    (predicted in another process) beside the measured peak, within
+    LAUNCH_LM_MEM_TOL / LAUNCH_DPC_MEM_MAX.  18c-d:
+    LAUNCH_WORLD gloo ranks sharing the card on mesh LAUNCH_MESH: BST's
+    full config at serve_bulk (logits == one rank's within BST_LOGIT_TOL,
+    the bag kernel launched on every rank) and its retrieval of 10^6
+    candidates (top-100 ids == one rank's); MeshGraphNet 512^2 (forward
+    == one rank within GNN_FWD_TOL of the largest output; the loss, the
+    gradients and one AdamW step's parameters) and GAT minibatch_lg
+    (phase 16's sampled batch: forward, loss and gradients).  `minibatch` is phase 16's host batch; `smoke` runs
+    the smoke configs (a CPU rehearsal, nothing timed).  Returns the
+    launches by sub-phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.configs import gnn_shapes
+    from repro_torch.core.ids import compute_order
+    from repro_torch.data import graphs, perlin_noise, recsys
+    from repro_torch.interop import gnn_batch_from_numpy
+    from repro_torch.kernels import (block_pathcompress, flash_attention,
+                                     fused_local_phase, segment_bag,
+                                     steepest_neighbor)
+    from repro_torch.launch import cells
+    from repro_torch.models import bst, gnn, lm
+    from repro_torch.runtime.meshctx import Mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    launches = {}
+    kernel_mods = {"steepest_neighbor": steepest_neighbor,
+                   "block_pathcompress": block_pathcompress,
+                   "segment_bag": segment_bag,
+                   "flash_attention": flash_attention,
+                   "fused_local_phase": fused_local_phase}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    try:
+        # 18a: the dry runs, each in its own process, all at once --------
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=_src_path())
+        procs = []
+        for arch, shape, flag in LAUNCH_CELLS:
+            log = open(os.path.join(tmp, f"{arch}__{shape}.log"), "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, flag, "--out",
+                   os.path.join(tmp, "dryrun")] + (["--smoke"] if smoke
+                                                   else [])
+            procs.append((arch, shape, log, subprocess.Popen(
+                cmd, env=env, stdout=log, stderr=subprocess.STDOUT)))
+        plog = open(os.path.join(tmp, "predictions.log"), "w")
+        pred = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{root!r}); import chip_smoke; chip_smoke._launch_predictions("
+             f"{tmp!r}, {smoke!r})"], env=env, stdout=plog,
+            stderr=subprocess.STDOUT)
+
+        # 18b: the two one-rank cells on the card, meanwhile -------------
+        t1 = time.perf_counter()
+        mesh1 = Mesh((1, 1), ("data", "model"), dev)
+        b, s = (2, 64) if smoke else LAUNCH_LM_BATCH
+        cell = cells.build_lm_cell(
+            "llama3_2_1b", configs.get("llama3_2_1b"), "train_4k",
+            {"kind": "train", "batch": b, "seq": s}, mesh1, smoke)
+        gen = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
+        params = lm.init_params(gen, cell.cfg)
+        toks = torch.randint(0, cell.cfg.vocab, (b, s), generator=gen,
+                             device=dev, dtype=torch.int32)
+        args = ((params, cell.opt.init(params)),
+                {"tokens": toks, "labels": toks})
+        measured = {}
+
+        def measure(name, *step_args):
+            sync()
+            if on_card:
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated() - nbytes(step_args)
+                torch.cuda.reset_peak_memory_stats()
+            for mod in kernel_mods.values():
+                for k in mod.launches:
+                    mod.launches[k] = 0
+            t = time.perf_counter()
+            result = cell.step_fn(*step_args)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            launches[f"18b {name}"] = {
+                mname: dict(mod.launches)
+                for mname, mod in kernel_mods.items()}
+            peak = (torch.cuda.max_memory_allocated() - base) if on_card \
+                else None
+            measured[name] = {"peak": peak, "ms": ms,
+                              "args": nbytes(step_args)}
+            return result
+
+        (new, _), metrics = measure("lm", *args)
+        check(bool(torch.isfinite(metrics["loss"])),
+              f"18b lm: the step's loss is finite ({float(metrics['loss'])})")
+        lm_launch = launches["18b lm"]["flash_attention"]
+        check(not on_card or sum(lm_launch.values()) == 2 * cell.cfg.n_layers,
+              f"18b lm: the attention kernel launched twice a layer (remat),"
+              f" {lm_launch}")
+        del new, args, params, metrics
+        store = os.path.join(tmp, "store_18b")
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(store, 1), rank=0,
+                                world_size=1)
+        try:
+            cell = cells.build_cell("dpc_grid", "grid_512", mesh1,
+                                    smoke=smoke)
+            dims = tuple(cell.arg_shapes[0].shape)
+            order = compute_order(perlin_noise(dims, frequency=0.1,
+                                               seed=SEED, device=dev))
+            labels, stats = measure("dpc", *cell.local((order,)))
+            check(tuple(labels.shape) == dims and bool((labels >= 0).all())
+                  and int(stats.converged) == 1,
+                  f"18b dpc: labels of {dims}, all maxima ids, converged")
+            del order, labels
+        finally:
+            dist.destroy_process_group()
+        phase("launch 18b: one-rank cells on the card", t1)
+
+        rcs = {}
+        for arch, shape, log, p in procs:
+            rcs[(arch, shape)] = p.wait(timeout=900)
+            log.close()
+        pred.wait(timeout=900)
+        plog.close()
+        with open(os.path.join(tmp, "predictions.log")) as f:
+            text = f.read()
+        check(pred.returncode == 0, f"18b predictions exit 0: "
+              f"{text[-2000:]}")
+        for (arch, shape), rc in rcs.items():
+            with open(os.path.join(tmp, f"{arch}__{shape}.log")) as f:
+                text = f.read()
+            check(rc == 0 and "0 failures" in text,
+                  f"18a {arch}:{shape} dry run exit 0: {text[-3000:]}")
+        for arch, shape, flag in LAUNCH_CELLS:
+            label = "pod256" if flag == "--single-pod" else "pod2x256"
+            with open(os.path.join(tmp, "dryrun", label,
+                                   f"{arch}__{shape}.json")) as f:
+                rec = json.load(f)
+            m = rec["memory"]
+            check(rec["cost"]["flops"] > 0 and m["argument_size_in_bytes"]
+                  > 0, f"18a {arch}:{shape}: flops and arguments counted")
+            print(f"  18a {rec['cell']} @ {label}: per rank "
+                  f"{(m['argument_size_in_bytes'] + m['temp_size_in_bytes']) / 2**30:.3f}"
+                  f" GiB (args {m['argument_size_in_bytes'] / 2**30:.3f}, "
+                  f"temp {m['temp_size_in_bytes'] / 2**30:.3f}), "
+                  f"{rec['cost']['flops'] / 1e9:.1f} GFLOP, "
+                  f"{rec['cost']['bytes accessed'] / 1e9:.2f} GB accessed, "
+                  f"collectives {rec['collectives']['total'] / 2**20:.1f} MiB"
+                  f" in {rec['collectives']['n_collectives']}, traced in "
+                  f"{rec['compile_s']} s; kernels {rec['kernels']}; "
+                  f"{rec['note']}")
+        with open(os.path.join(tmp, "predictions.json")) as f:
+            pred_rec = json.load(f)
+        for arch in ("kimi_k2_1t", "stablelm_12b"):
+            a, b2 = (pred_rec["args"][f"{arch}@{m}"]
+                     for m in ("pod256", "pod2x256"))
+            check(b2 <= a, f"18a {arch} train_4k: per-rank arguments on "
+                  f"2 x 256 ({b2} B) no larger than on 256 ({a} B)")
+            print(f"  18a {arch} train_4k arguments a rank: {a} B on 256, "
+                  f"{b2} B on 2 x 256")
+        phase("launch 18a: dry runs", t0)
+        for name in ("lm", "dpc"):
+            mem = pred_rec[name][0]
+            want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            got = measured[name]
+            print(f"  18b {name}: dry run args {mem['argument_size_in_bytes']}"
+                  f" + temp {mem['temp_size_in_bytes']} = {want} B "
+                  f"({want / 1e9:.3f} GB), card peak over the step "
+                  f"{got['peak']} B (args {got['args']}), step "
+                  f"{got['ms']:.3f} ms, launches {launches['18b ' + name]} "
+                  f"({smi})")
+            check(mem["argument_size_in_bytes"] == got["args"],
+                  f"18b {name}: the dry run's arguments == the card's "
+                  f"({mem['argument_size_in_bytes']} vs {got['args']})")
+            if on_card:
+                ratio = want / got["peak"]
+                print(f"  18b {name}: predicted / measured = {ratio:.4f}")
+                if name == "lm":
+                    check(abs(ratio - 1) <= LAUNCH_LM_MEM_TOL,
+                          f"18b lm: the dry run's memory within "
+                          f"{LAUNCH_LM_MEM_TOL} of the card's peak "
+                          f"({ratio})")
+                else:
+                    check(1.0 <= ratio <= LAUNCH_DPC_MEM_MAX,
+                          f"18b dpc: the dry run's memory bounds the card's "
+                          f"peak, at most {LAUNCH_DPC_MEM_MAX}x ({ratio})")
+
+        # 18c-d: the one-rank references, then the ranks ------------------
+        t0 = time.perf_counter()
+        bmod = configs.get("bst")
+        bcfg = bmod.smoke_config() if smoke else bmod.full_config()
+        bshapes = bmod.SMOKE_SHAPES if smoke else bmod.SHAPES
+        bbatch = {k: torch.from_numpy(v) for k, v in recsys.bst_batch(
+            bcfg, bshapes["serve_bulk"]["batch"], LAUNCH_SEED).items()}
+        bretr = {k: torch.from_numpy(v) for k, v in recsys.retrieval_batch(
+            bcfg, 1, bshapes["retrieval_cand"]["n_candidates"],
+            LAUNCH_SEED).items()}
+        params = bst.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 bcfg)
+        with torch.no_grad():
+            ref_logits = bst.forward(params, {k: v.to(dev) for k, v in
+                                              bbatch.items()}, bcfg).cpu()
+            ref_retr = [t.cpu() for t in bst.retrieval_step(
+                params, {k: v.to(dev) for k, v in bretr.items()}, bcfg,
+                top_k=100)]
+        del params
+        side = 16 if smoke else GNN_MESH_SIDE
+        make = "smoke_config" if smoke else "full_config"
+        mcfg = getattr(configs.get("meshgraphnet"), make)()
+        mgraph = graphs.pad_graph(graphs.mesh_grid_graph(side, side, seed=0),
+                                  LAUNCH_WORLD)
+        gcfg = dataclasses.replace(
+            getattr(configs.get("gat-cora"), make)(),
+            d_in=minibatch["node_feat"].shape[1],
+            n_classes=int(minibatch["labels"].max()) + 1 if smoke else
+            gnn_shapes.SHAPES["minibatch_lg"]["n_classes"])
+        ggraph = graphs.pad_graph(minibatch, LAUNCH_WORLD)
+        refs = {}
+        inputs = {"bst_batch": bbatch, "bst_retrieval": bretr}
+        for key, cfg, host in (("mgn", mcfg, mgraph), ("gat", gcfg, ggraph)):
+            params = gnn.init_params(torch.Generator().manual_seed(GNN_SEED),
+                                     cfg)
+            card = tree_map(lambda t: t.to(dev), params)
+            graph = gnn_batch_from_numpy(host, dev)
+            with torch.no_grad():
+                y = gnn.apply(card, graph, cfg).cpu()
+            leaves = tree_map(lambda t: t.detach().requires_grad_(), card)
+            loss, _ = gnn.loss_fn(leaves, graph, cfg)
+            loss.backward()
+            grads = tree_map(lambda t: t.grad, leaves)
+            refs[key] = (y, float(loss.detach()),
+                         tree_map(lambda t: t.cpu(), grads),
+                         tree_map(lambda t: t.cpu(), _gnn_adamw_step(
+                             card, grads)) if key == "mgn" else None)
+            inputs.update({f"{key}_cfg": cfg, f"{key}_params": params,
+                           f"{key}_graph": host})
+            del card, graph, leaves, grads, loss
+        torch.save(inputs, os.path.join(tmp, "launch_inputs.pt"))
+        del inputs
+        if on_card:
+            torch.cuda.empty_cache()
+        phase("launch 18c-d: one-rank references", t0)
+
+        t0 = time.perf_counter()
+        mp.spawn(_launch_rank, args=(os.path.join(tmp, "store_18"), tmp,
+                                     dev.type, smoke), nprocs=LAUNCH_WORLD)
+        recs = [torch.load(os.path.join(tmp, f"launch_rank{r}.pt"),
+                           weights_only=False) for r in range(LAUNCH_WORLD)]
+        phase("launch 18c-d: ranks", t0)
+        launches["18c"] = {r: rec["bst_launches"] for r, rec in
+                           enumerate(recs)}
+        top = float(ref_logits.abs().max())
+        for r, rec in enumerate(recs):
+            err = float((rec["bst_logits"] - ref_logits).abs().max())
+            check(err <= BST_LOGIT_TOL[1] * max(top, 1.0),
+                  f"18c rank {r}: serve_bulk logits == one rank's within "
+                  f"{BST_LOGIT_TOL[1]} of {top} (err {err})")
+            check(not on_card or sum(rec["bst_launches"].values()) == 2,
+                  f"18c rank {r}: segment_bag launched on this rank's rows "
+                  f"({rec['bst_launches']})")
+            check(torch.equal(rec["retrieval"][1], ref_retr[1]),
+                  f"18c rank {r}: top-100 retrieval ids == one rank's")
+            print(f"  18c rank {r} {rec['coords']}: serve_bulk forward "
+                  f"{rec['bst_ms']:.3f} ms (err {err}, launches "
+                  f"{rec['bst_launches']}), retrieval {rec['retrieval_ms']:.3f}"
+                  f" ms, ids == one rank's ({smi})")
+        for key, label in (("mgn", "18d MeshGraphNet"),
+                           ("gat", "18d GAT minibatch_lg")):
+            y, loss, grads, new = refs[key]
+            top = float(y.abs().max())
+            for r, rec in enumerate(recs):
+                err = float((rec[f"{key}_out"] - y).abs().max())
+                gerr = _leafwise_err(rec[f"{key}_grads"], grads)
+                check(err <= GNN_FWD_TOL * top,
+                      f"{label} rank {r}: forward == one rank's within "
+                      f"{GNN_FWD_TOL} of {top} (err {err})")
+                check(abs(rec[f"{key}_loss"] - loss) <= GNN_FWD_TOL
+                      * max(abs(loss), 1.0) and gerr <= LAUNCH_GRAD_TOL,
+                      f"{label} rank {r}: loss {rec[f'{key}_loss']} vs "
+                      f"{loss}, gradients within {gerr} of each leaf's "
+                      f"largest (<= {LAUNCH_GRAD_TOL})")
+                step = ""
+                if new is not None:
+                    perr, flips = _step_agree(rec["mgn_new"], new, GNN_LR)
+                    check(perr <= 2 * GNN_LR and flips <= LAUNCH_FLIP_SHARE,
+                          f"{label} rank {r}: the AdamW step's parameters "
+                          f"within 2 lr of one rank's ({perr}), updates "
+                          f"flipped on {flips} <= {LAUNCH_FLIP_SHARE}")
+                    step = (f", AdamW parameters within {perr} of one "
+                            f"rank's, {flips} of the updates flipped")
+                print(f"  {label} rank {r} {rec['coords']}: forward "
+                      f"{rec[f'{key}_fwd_ms']:.3f} ms (err {err} of {top}), "
+                      f"loss + backward{' + AdamW' if key == 'mgn' else ''} "
+                      f"{rec[f'{key}_step_ms']:.3f} ms, gradients {gerr}"
+                      f"{step}, peak {rec[f'{key}_peak_gb']} GB ({smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4958,10 +5474,14 @@ def main():
     train_launches = train_path(smi, dev)
 
     # 16. the GNN substrate ------------------------------------------------
-    gnn_launches = gnn_path(smi, dev)
+    gnn_launches, minibatch = gnn_path(smi, dev)
 
     # 17. the distributed LM and the example twins ---------------------------
     dlm_launches, dlm_fused, dlm_err = distributed_lm_path(smi, dev)
+
+    # 18. the launch tools, the sharded BST and GNNs -------------------------
+    launch_launches = launch_path(smi, dev, minibatch)
+    del minibatch
     for row in kernels:
         if row["name"] == "flash_attention/bfloat16":
             row["launches_lm"] = {k: v["bfloat16"]
@@ -4989,6 +5509,11 @@ def main():
                 row["max_abs_err"] = max(row["max_abs_err"], dlm_err)
         if mod == "fused_local_phase":
             row["launches_examples"] = dlm_fused[key]
+        row["launches_launch"] = {
+            sub: ({r: n[key] for r, n in c.items()} if sub == "18c"
+                  else c[mod][key] if key else sum(c[mod].values()))
+            for sub, c in launch_launches.items()
+            if sub != "18c" or mod == "segment_bag"}
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ The serving half of the LM and recsys substrate sits beside them: the dense
 decoder-only LM (`models.lm`: prefill through the `flash_attention` kernel,
 KV-cache decode), BST (`models.bst`: multi-hot bags through the
 `segment_bag` kernel, retrieval), their configs (`configs.get`) and the
-launcher `launch.serve`.
+launcher `launch.serve`.  The launch tools (`launch.cells`, `launch.dryrun`)
+trace any cell's per-rank program on the meta device (`_meta`: the
+kernels' meta rules and the collective counts).
 """
 from ._device import resolve_device
 

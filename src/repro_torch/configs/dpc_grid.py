@@ -8,8 +8,9 @@ one device is the per-device share of the paper's largest run (4096^3 over
 64 nodes puts 1024^3 on a node).  1024^3 is the largest grid whose flat ids
 fit int32 (2048^3+ takes the int64 path).
 
-`layout` is the block decomposition of the distributed runs (a later
-slice of the port)."""
+`layout` is the block decomposition of the distributed runs; the cells
+(`launch.cells`) fall back to the flat 1-D mesh when it does not match the
+rank count."""
 import dataclasses
 
 FAMILY = "dpc"
@@ -38,6 +39,21 @@ SHAPES = {
     "cc_ragged": {"kind": "dpc_cc", "dims": (971, 613, 431)},
 }
 
+# smoke grids (JAX's): small enough to trace fast; ragged shapes keep their
+# prime extents
+SMOKE_SHAPES = {
+    "grid_512": {"kind": "dpc", "dims": (512, 8, 8)},
+    "grid_1024": {"kind": "dpc", "dims": (1024, 8, 8)},
+    "cc_1024": {"kind": "dpc_cc", "dims": (1024, 8, 8)},
+    "cc_512": {"kind": "dpc_cc", "dims": (512, 8, 8)},
+    "grid_ragged": {"kind": "dpc", "dims": (97, 61, 43)},
+    "cc_ragged": {"kind": "dpc_cc", "dims": (97, 61, 43)},
+}
+
 
 def full_config() -> DPCConfig:
     return DPCConfig()
+
+
+def smoke_config() -> DPCConfig:
+    return DPCConfig(name="dpc-grid-smoke", layout=(2, 2, 2))

@@ -22,8 +22,8 @@ deviation (d2), the value-search substitution (Alg. 2 lines 27-33
 generalised to merged labels), and the sharded outer exchange loop.
 
 Each of JAX's `lax.while_loop`s is a Python loop here that reads one bool
-a round, with the same round counts; counts come back as ints and
-convergence flags as bools.
+a round (`_meta.again`: once on the meta device), with the same round
+counts; counts come back as ints and convergence flags as bools.
 
 Sentinel contract (deviation (p)): ragged decompositions pad their tables
 with slots whose label is -1 and whose mask is False; `pointer_chase` fixes
@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .._meta import again, cumsum
 from .steepest import segment_max_into
 
 TABLE_MODES = ("replicated", "sharded")
@@ -72,7 +73,7 @@ def pointer_chase(T, lookup, max_iter: int = 64):
     changed, iters = True, 0
     while changed and iters < max_iter:
         nt = lookup(T)
-        changed = bool((nt != T).any())
+        changed = again((nt != T).any())
         T, iters = nt, iters + 1
     return T, iters, not changed
 
@@ -97,7 +98,7 @@ def make_group_max(Tstar: torch.Tensor):
     sorted_vals = Tstar[perm]
     run_start = torch.ones(msize, dtype=torch.bool, device=Tstar.device)
     run_start[1:] = sorted_vals[1:] != sorted_vals[:-1]
-    run_id = torch.cumsum(run_start, 0, dtype=torch.int32) - 1
+    run_id = cumsum(run_start, torch.int32) - 1
     inv_perm = torch.empty_like(perm)
     inv_perm[perm] = torch.arange(msize, device=Tstar.device)
 
@@ -120,7 +121,7 @@ def hook_propagate(Tstar, cut_max, group_max, max_iter: int = 64):
     changed, iters, L = True, 0, Tstar
     while changed and iters < max_iter:
         nxt = group_max(cut_max(L))
-        changed = bool((nxt != L).any())
+        changed = again((nxt != L).any())
         L, iters = nxt, iters + 1
     return L, iters, not changed
 
@@ -175,7 +176,7 @@ def sharded_fixpoint_batch(own0, exchange, refine, reduce_any,
         for b in run:
             stack2, inner, ok2 = refine(stack[b], b)
             new_own.append(stack2[:n_own])
-            flags.append(bool((new_own[-1] != own[b]).any()))
+            flags.append(again((new_own[-1] != own[b]).any()))
             iters[b] += int(inner)
             ok[b] = ok[b] and bool(ok2)
         ch = reduce_any(torch.tensor(flags))
@@ -207,7 +208,9 @@ def check_converged(flag, what: str, max_iter: int) -> None:
     """Raise when a table fixpoint was cut off at `max_iter` instead of
     returning a silently-wrong answer.  Torch runs eagerly, so the flag is
     always concrete and the check always runs (JAX skips it under
-    tracing)."""
+    tracing), except on the meta device, where no flag has a value."""
+    if isinstance(flag, torch.Tensor) and flag.is_meta:
+        return
     ok = bool(flag.all()) if isinstance(flag, torch.Tensor) \
         else bool(np.all(np.asarray(flag)))
     if not ok:

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._meta import again, select
 from .pathcompress import path_compress
 from .steepest import (compact, graph_edges, graph_mask_argmax,
                        graph_mask_argmax_pairs, neighbor_offsets,
@@ -43,7 +44,8 @@ def _grid_stitch(d: torch.Tensor, mask_flat: torch.Tensor, shape,
     for off in neighbor_offsets(len(shape), connectivity):
         valid = mask_flat & shift_fill(m_grid, off, False).reshape(-1)
         u_label = shift_fill(d_grid, off, -1).reshape(-1)          # d[u]
-        out.scatter_reduce_(0, d[valid].long(), u_label[valid], "amax")
+        out.scatter_reduce_(0, select(d, valid).long(),
+                            select(u_label, valid), "amax")
     return out
 
 
@@ -71,7 +73,7 @@ def _cc_fixpoint(d0: torch.Tensor, stitch_fn, max_rounds: int = 64) -> CCResult:
     rounds, changed = 0, True
     while changed and rounds < max_rounds:
         compressed, it = path_compress(stitch_fn(d))
-        changed = bool((compressed != d).any())
+        changed = again((compressed != d).any())
         d, rounds, its = compressed, rounds + 1, its + it
     return CCResult(d, rounds, its)
 

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import _meta
 from .._device import resolve_device
 from ._table import (TableView, chase_view, check_converged, check_table_mode,
                      make_group_max, hook_propagate, sharded_fixpoint_batch,
@@ -88,7 +89,10 @@ class DPCMesh:
     (row-major in mesh-axis order).  `coords[a]` is the rank's coordinate
     along mesh axis a (JAX's `lax.axis_index`).  `device` is where the
     entry points run; the collectives below are the only communication of
-    the distributed backends.
+    the distributed backends.  Each one adds its result-shape bytes to the
+    active `_meta.counting`.  On the meta device (a dry run on a fake
+    process group) the point-to-point exchanges send nothing: the shift
+    returns its fill and the permute zeros, with their bytes counted.
     """
 
     def __init__(self, layout, names, group, device):
@@ -145,6 +149,10 @@ class DPCMesh:
         L, p = self.layout[a], self.coords[a]
         if L == 1:
             return from_prev, from_next
+        for t in (from_prev, from_next):
+            _meta.add_collective("collective-permute", _meta.nbytes(t))
+        if self.device.type == "meta":
+            return from_prev, from_next
         ops, recvs = [], []
         for coord, send, recv in ((p - 1, to_prev, from_prev),
                                   (p + 1, to_next, from_next)):
@@ -173,6 +181,9 @@ class DPCMesh:
             raise ValueError(f"permute pairs {pairs} repeat a source or a "
                              f"destination")
         out = torch.zeros_like(x)
+        _meta.add_collective("collective-permute", _meta.nbytes(out))
+        if self.device.type == "meta":
+            return out
         ops, buf = [], None
         for src, dst in pairs:
             if src == dst == self.rank:
@@ -199,6 +210,7 @@ class DPCMesh:
         # flat in and out: gloo takes the output as ranks x input along dim 0
         out = torch.empty(self.size * w.numel(), dtype=w.dtype,
                           device=w.device)
+        _meta.add_collective("all-gather", _meta.nbytes(out))
         dist.all_gather_into_tensor(out, w.reshape(-1), group=self.group)
         return self._unwire(out.view((self.size,) + tuple(w.shape)), x)
 
@@ -208,7 +220,10 @@ class DPCMesh:
         dev = torch.device("cpu") if self.staged else self.device
         t = torch.tensor([int(v) for v in values], dtype=torch.int64,
                          device=dev)
+        _meta.add_collective("all-reduce", _meta.nbytes(t))
         dist.all_reduce(t, op=op, group=self.group)
+        if t.is_meta:               # no value crossed: each rank's own
+            return [int(v) for v in values]
         return t.tolist()
 
     def pmax(self, *values) -> list:
@@ -401,8 +416,14 @@ class BlockDecomp:
 
     def on_device(self, name: str, device) -> torch.Tensor:
         """`boundary_coords` or `ghost_mask()` as a tensor on `device`,
-        uploaded once per decomposition and device."""
+        uploaded once per decomposition and device (on the meta device,
+        its shape only: no host table is built)."""
         key = (name, str(device))
+        if torch.device(device).type == "meta":
+            if name == "coords":
+                return torch.empty((self.table_size, self.ndim),
+                                   dtype=torch.int32, device=device)
+            return torch.empty(self.ext, dtype=torch.bool, device=device)
         if key not in self._on_device:
             host = self.boundary_coords if name == "coords" \
                 else self.ghost_mask()
@@ -513,8 +534,8 @@ def _through_roots(d, dec: BlockDecomp, mesh: DPCMesh, substitute):
     results by one gather; the reference evaluates it on every owned
     vertex."""
     n = d.numel()
-    roots = (d == torch.arange(n, dtype=d.dtype, device=d.device)
-             ).nonzero().reshape(-1)
+    roots = _meta.nonzero(d == torch.arange(n, dtype=d.dtype,
+                                            device=d.device))
     final = torch.empty(n, dtype=dec.id_dtype, device=d.device)
     final[roots] = substitute(_gid_of(roots, dec, mesh))
     owned = d.reshape(dec.ext)[dec.owned_slices].reshape(-1)
@@ -582,7 +603,7 @@ def _cut_edges(coords, row_ok, slot_of, M, dec: BlockDecomp, connectivity):
                 dec.id_dtype) * dec.stride[i]
         in_view, slot = slot_of(g)
         slot = slot.clamp(0, M.numel() - 1).long()
-        edge = (ok & in_view & M & M[slot]).nonzero().reshape(-1)
+        edge = _meta.nonzero(ok & in_view & M & M[slot])
         dst.append(edge)
         src.append(slot[edge])
     return torch.cat(dst), torch.cat(src)
@@ -975,8 +996,8 @@ def _ext_stitch(d, mask_ext, connectivity):
         u_label = shift_fill(dg, off, -1).reshape(-1)
         valid = m & shift_fill(mask_ext, off, False).reshape(-1) \
             & (u_label >= 0)
-        tgt = out[valid].long()
-        out.scatter_reduce_(0, tgt, u_label[valid], "amax")
+        tgt = _meta.select(out, valid).long()
+        out.scatter_reduce_(0, tgt, _meta.select(u_label, valid), "amax")
     return out
 
 
@@ -987,7 +1008,7 @@ def _cc_local_fixpoint(d, mask_ext, connectivity, max_rounds=64):
     rounds, its, changed = 0, it0, True
     while changed and rounds < max_rounds:
         nxt, it = path_compress(_ext_stitch(d, mask_ext, connectivity))
-        changed = bool((nxt != d).any())
+        changed = _meta.again((nxt != d).any())
         d, rounds, its = nxt, rounds + 1, its + it
     return d, rounds, its, it0
 
@@ -1110,7 +1131,7 @@ def _cc_block(masks, dec: BlockDecomp, mesh: DPCMesh, connectivity,
         ghost_bytes = (_f32(dec.n_valid_slots * isz) + (
             _f32(dec.n_valid_slots) if gather_mask else 0.0)).repeat(B)
         table_bytes = _f32(dec.table_size * (isz + 1)).repeat(B)
-        masked = [int(m.sum()) for m in M]
+        masked = [_meta.read_int(m.sum()) for m in M]
     else:
         # 4b-6. sharded: max-flooding on the own+halo stack (no gather)
         subs, Ms, geom, exch_rounds, table_iters, ok = _sharded_cc_resolve(
@@ -1126,7 +1147,8 @@ def _cc_block(masks, dec: BlockDecomp, mesh: DPCMesh, connectivity,
                            + geom.stack_size).repeat(B)
         # over in-domain slots (pad slots are mask False); the count is
         # summed as an integer, exact where JAX's float32 psum is
-        masked = mesh.all_reduce([int(m[:geom.rows].sum()) for m in Ms],
+        masked = mesh.all_reduce([_meta.read_int(m[:geom.rows].sum())
+                                  for m in Ms],
                                  dist.ReduceOp.SUM)
     masked_frac = _f32(masked) / _f32(max(dec.n_valid_slots, 1))
 

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .._meta import read_int
+
 from ._table import (check_converged, check_table_mode, hook_propagate,
                      make_group_max, pointer_chase, sharded_fixpoint_batch,
                      value_substitute)
@@ -393,7 +395,7 @@ def _cc_partitions(local_masks, dec: GraphDecomp, mesh: DPCMesh,
                                            G.index_select(0, perm)))
             table_iters.append(chase_iters + prop_iters)
             not_ok.append(int(not (chase_ok and prop_ok)))
-            masked.append(int(M.sum()))
+            masked.append(read_int(M.sum()))
         rows = 2 if gather_mask else 1
         # pad cut slots carry label -1 / mask False and are left out of the
         # exchange accounting (deviation (p))
@@ -467,7 +469,7 @@ def _cc_partitions(local_masks, dec: GraphDecomp, mesh: DPCMesh,
         table_bytes = _f32((2 * size + c_max) * isz + size).repeat(B)
         # over real slots (pad slots are mask False); summed as an integer,
         # exact where JAX's float32 psum is
-        masked = mesh.all_reduce([int(M[:c_max].sum()) for M in Ms],
+        masked = mesh.all_reduce([read_int(M[:c_max].sum()) for M in Ms],
                                  dist.ReduceOp.SUM)
     # the sharded fixpoint's counts differ between ranks: pmax, as the
     # reference does (replicated counts are equal on every rank)

@@ -7,11 +7,14 @@ are "unmasked" sentinels (paper Alg. 3 line 12) and are left untouched.
 
 `index_select` takes int32 indices, so a round needs no int64 copy of the
 pointers; `d[idx]` would make one (1 GB at 512^3).  The convergence test
-reads one bool back to the host each round.
+reads one bool back to the host each round (`_meta.again`: a shape-only
+run on the meta device costs one round).
 """
 from __future__ import annotations
 
 import torch
+
+from .._meta import again
 
 
 def jump(d: torch.Tensor) -> torch.Tensor:
@@ -35,7 +38,7 @@ def path_compress(d: torch.Tensor, max_iter: int = 64):
     iters, changed = 0, True
     while changed and iters < max_iter:
         nxt = jump(d)
-        changed = bool((nxt != d).any())
+        changed = again((nxt != d).any())
         d, iters = nxt, iters + 1
     return d, iters
 

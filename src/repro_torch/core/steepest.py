@@ -135,7 +135,7 @@ def gather_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
     """`ids` as JAX's gather reads them from an axis of n: negative ids wrap
     once (+n), then every id is clamped to [0, n - 1].  Returns `ids` itself
     when all are in range.  n must be > 0."""
-    if ids.numel() == 0:
+    if ids.numel() == 0 or ids.is_meta:     # meta: no values to check
         return ids
     lo, hi = (int(v) for v in torch.aminmax(ids))
     if lo >= 0 and hi < n:
@@ -145,8 +145,8 @@ def gather_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
 
 def compact(keep: torch.Tensor | None, *edges: torch.Tensor):
     """The edges where `keep` holds (all of them, uncopied, where `keep` is
-    None or all true)."""
-    if keep is None or bool(keep.all()):
+    None or all true, or on the meta device)."""
+    if keep is None or keep.is_meta or bool(keep.all()):
         return edges
     return tuple(e.masked_select(keep) for e in edges)
 

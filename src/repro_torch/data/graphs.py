@@ -293,3 +293,42 @@ def component_labels(batch, device=None) -> np.ndarray:
         canonical_tensor(batch["senders"], device),
         canonical_tensor(batch["receivers"], device))
     return res.labels.cpu().numpy()
+
+
+_NODE_KEYS = ("node_feat", "positions", "node_mask", "graph_ids")
+_EDGE_KEYS = ("senders", "receivers", "edge_mask", "edge_feat")
+_TRIPLET_KEYS = ("triplet_src", "triplet_dst", "triplet_mask")
+
+
+def pad_graph(batch: dict, multiple: int) -> dict:
+    """A numpy graph batch with its node, edge and triplet arrays padded to
+    multiples of `multiple` rows, as the dry-run cells pad theirs (to 512)
+    so that they split over any mesh of that many ranks: pad nodes are
+    masked (features 0, graph 0, GAT label -1), pad edges join the last
+    node to itself, masked, and pad triplets join the last edge to itself,
+    masked.  Per-graph arrays and `n_graphs` are unchanged."""
+    def up(n):
+        return -(-n // multiple) * multiple
+
+    n, e = batch["node_mask"].shape[0], batch["senders"].shape[0]
+    gat_labels = batch.get("labels") is not None and \
+        batch["labels"].shape[0] == n
+    groups = [(_NODE_KEYS + (("labels",) if gat_labels else ()), n, 0),
+              (_EDGE_KEYS, e, up(n) - 1)]
+    if "triplet_src" in batch:
+        groups.append((_TRIPLET_KEYS, batch["triplet_src"].shape[0],
+                       up(e) - 1))
+    out = dict(batch)
+    for keys, size, last in groups:
+        for k in keys:
+            v = batch.get(k)
+            if v is None:
+                continue
+            fill = 0
+            if k in ("senders", "receivers", "triplet_src", "triplet_dst"):
+                fill = last
+            elif k == "labels" and v.ndim == 1 and v.dtype.kind == "i":
+                fill = -1
+            pad = np.full((up(size) - size,) + v.shape[1:], fill, v.dtype)
+            out[k] = np.concatenate([v, pad])
+    return out

@@ -9,7 +9,11 @@ impl="plain": the kernel's plain PyTorch version on any device (no JAX
 counterpart; the models' callers hold the kernel to it).
 impl="ref": the JAX package's `impl="ref"` path, ported as it is.
 Nothing falls back from the kernel to the plain version: on a CUDA tensor
-the kernel runs or the call raises.
+the kernel runs or the call raises.  On a meta tensor (a shape-only trace,
+`launch.dryrun`) "auto" and "kernel" take the kernel's meta rule in
+`repro_torch._meta`: outputs of the kernel's shapes and dtypes, its FLOPs
+and bytes added to the active count (`_meta.counting`), `fused_local_phase`
+costed as one round.  No other tensor takes that branch.
 
 `flash_attention` and `embedding_bag` under "auto" and "kernel" are
 `torch.autograd.Function`s: the forward is the kernel (or, on a CPU tensor
@@ -24,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import _meta
+from ..core.steepest import id_dtype_for
 from . import ref
 from .block_pathcompress import block_pathcompress as _bpc_kernel
 from .flash_attention import (check_shapes as _check_attention_shapes,
@@ -84,6 +90,10 @@ def fused_local_phase(field: torch.Tensor, connectivity: int = 6,
     if mode not in ("manifold", "cc"):
         raise ValueError(f"mode must be 'manifold' or 'cc', got {mode!r}")
     if impl != "ref" and _grid_kernel_ok(field, connectivity):
+        if field.is_meta and impl != "plain":
+            return _meta.fused_local_phase(
+                field, connectivity, mode, self_mask,
+                id_dtype or id_dtype_for(field.numel()))
         if _use_kernel(impl, field, "fused_local_phase"):
             if mode == "cc" and field.dtype != torch.bool:
                 field = field != 0
@@ -115,6 +125,9 @@ def steepest_neighbor(order: torch.Tensor, connectivity: int = 6,
     _check_impl(impl)
     if block_x < 1:
         raise ValueError(f"block_x must be >= 1, got {block_x}")
+    if (impl in ("auto", "kernel") and order.is_meta
+            and _grid_kernel_ok(order, connectivity)):
+        return _meta.steepest_neighbor(order, connectivity)
     if (impl != "ref" and _grid_kernel_ok(order, connectivity)
             and _use_kernel(impl, order, "steepest_neighbor")):
         return _steepest_kernel(order.contiguous(), connectivity)
@@ -134,6 +147,8 @@ def block_pathcompress(d: torch.Tensor, rounds: int = 4, block: int = 4096,
     if block < 1 or rounds < 0:
         raise ValueError(f"block must be >= 1 and rounds >= 0, got block "
                          f"{block}, rounds {rounds}")
+    if d.is_meta and impl != "plain":
+        return _meta.block_pathcompress(d, rounds)
     if _use_kernel(impl, d, "block_pathcompress"):
         return _bpc_kernel(d.contiguous(), rounds=rounds, block=block)
     return ref.block_pathcompress_kernel_ref(d, rounds=rounds, block=block)
@@ -232,13 +247,16 @@ def bag_backward(dout, ids, vocab: int, dtype) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The attention kernel (or its plain version, `kernel` False) with
-    `attention_backward` as its gradient; saves q, k and v only."""
+    """The attention kernel (or its plain version, `kernel` False, or its
+    meta rule, `kernel` "meta") with `attention_backward` as its gradient;
+    saves q, k and v only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kernel, block_k):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
+        if kernel == "meta":
+            return _meta.flash_attention(q, k, v, causal)
         if kernel:
             return _flash_kernel(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=causal)
@@ -253,13 +271,16 @@ class _FlashAttention(torch.autograd.Function):
 
 
 class _SegmentBag(torch.autograd.Function):
-    """The bag kernel (or its plain version, `kernel` False) with
-    `bag_backward` as its gradient; saves the ids only."""
+    """The bag kernel (or its plain version, `kernel` False, or its meta
+    rule, `kernel` "meta") with `bag_backward` as its gradient; saves the
+    ids only."""
 
     @staticmethod
     def forward(ctx, table, ids, kernel):
         ctx.save_for_backward(ids)
         ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        if kernel == "meta":
+            return _meta.segment_bag(table, ids)
         if kernel:
             return _bag_kernel(table.contiguous(), ids.contiguous())
         return ref.segment_bag_ref(table, ids)
@@ -304,7 +325,7 @@ def flash_attention(q, k, v, causal: bool = False, impl: str = "auto",
     if impl == "plain":
         return ref.flash_attention_kernel_ref(q, k, v, causal=causal,
                                               block_k=min(block_k, sk))
-    return _FlashAttention.apply(q, k, v, causal,
+    return _FlashAttention.apply(q, k, v, causal, "meta" if q.is_meta else
                                  _use_kernel(impl, q, "flash_attention"),
                                  min(block_k, sk))
 
@@ -332,5 +353,5 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
                          f"{vocab_block}, {batch_block}")
     if impl == "plain":
         return ref.segment_bag_ref(table, ids)
-    return _SegmentBag.apply(table, ids, _use_kernel(impl, table,
-                                                     "segment_bag"))
+    return _SegmentBag.apply(table, ids, "meta" if table.is_meta else
+                             _use_kernel(impl, table, "segment_bag"))

@@ -74,7 +74,7 @@ from repro_torch.nn.core import (cross_entropy_chunked, dense_init,
                                  embed_init, rms_norm, rope)
 from repro_torch.runtime.meshctx import (LOGICAL_AXES, gather_blocks,
                                          get_current_mesh, local_block,
-                                         logical_to_spec, shard_count)
+                                         logical_to_spec, sharded_norm_fn)
 from repro_torch.tree import tree_map
 
 MOE_DISPATCHES = ("global", "local", "shard_map")
@@ -111,6 +111,7 @@ class LMConfig:
     loss_chunks: int = 8
     remat_attn: bool = False     # recompute the attention call
     remat_loss: bool = False     # recompute the loss
+    opt_moment_dtype: Any = torch.float32   # AdamW's moments (bf16 halves)
     seq_shard: bool = True       # on a mesh: sequence-parallel residual
     fsdp: bool = True            # on a mesh: parameters sharded over "data"
 
@@ -139,9 +140,10 @@ class LMConfig:
 # --- params ------------------------------------------------------------------
 
 
-def init_params(generator: torch.Generator, cfg: LMConfig):
+def init_params(generator: torch.Generator, cfg: LMConfig, device=None):
     """Parameters drawn from `generator`, on its device
-    (``torch.Generator("cuda")`` for the card): {"embed" (V, D), "layers":
+    (``torch.Generator("cuda")`` for the card) unless `device` names
+    another (``"meta"``: shapes and dtypes only): {"embed" (V, D), "layers":
     [{"ln1", "ln2", "wq", "wk", "wv", "wo", FFN}] * L, "ln_f" (D,),
     "unembed" (D, V)}, in `cfg.param_dtype`.  The dense FFN is "w_gate",
     "w_up", "w_down"; the MoE FFN "router" (D, E), the routed experts
@@ -151,13 +153,15 @@ def init_params(generator: torch.Generator, cfg: LMConfig):
     fan-in), an expert's D or F as in JAX's stacked draw, drawn one expert
     at a time (one kimi-k2 stack is 11 GB in bf16)."""
     d, dh, dt = cfg.d_model, cfg.head_dim, cfg.param_dtype
-    dev = generator.device
+    dev = generator.device if device is None else torch.device(device)
 
     def dense(i, o):
-        return dense_init(generator, i, o, dt)
+        return dense_init(generator, i, o, dt, device=dev)
 
     def experts(e, i, o):
         w = torch.empty((e, i, o), dtype=dt, device=dev)
+        if dev.type == "meta":                # no values to draw
+            return w
         for j in range(e):
             w[j] = dense(i, o)
         return w
@@ -183,7 +187,7 @@ def init_params(generator: torch.Generator, cfg: LMConfig):
         return lp
 
     return {
-        "embed": embed_init(generator, cfg.vocab, d, dt),
+        "embed": embed_init(generator, cfg.vocab, d, dt, device=dev),
         "layers": [layer() for _ in range(cfg.n_layers)],
         "ln_f": torch.ones(d, dtype=dt, device=dev),
         "unembed": dense(d, cfg.vocab),
@@ -548,15 +552,20 @@ def param_logical_specs(cfg: LMConfig):
 
 def check_mesh(cfg: LMConfig, mesh) -> None:
     """Raise ValueError unless `mesh` splits every sharded dimension of the
-    model: heads, KV heads, d_ff, the vocabulary and the experts over
-    "model", d_model over "data" (with fsdp)."""
+    model: heads, the KV projections' columns, d_ff, the vocabulary and the
+    experts over "model", d_model over "data" (with fsdp).  The KV heads
+    may be fewer than the "model" ranks when they divide them: each rank
+    then takes the one KV head its query heads use (`_Sharded.kv`)."""
     tp, fs = mesh.axis_size("model"), mesh.axis_size("data")
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+    dims = {"n_heads": cfg.n_heads,
+            "n_kv_heads * d_head": cfg.n_kv_heads * cfg.head_dim,
             "vocab": cfg.vocab, "d_ff": cfg.d_ff}
     if cfg.moe:
         dims.update(n_experts=cfg.moe.n_experts,
                     shared_d_ff=cfg.moe.n_shared * cfg.d_ff)
     bad = [f"{k} = {v}" for k, v in dims.items() if v % tp]
+    if cfg.n_kv_heads % tp and tp % cfg.n_kv_heads:
+        bad.append(f"n_kv_heads = {cfg.n_kv_heads}")
     if cfg.fsdp and cfg.d_model % fs:
         bad.append(f"d_model = {cfg.d_model} (over data = {fs})")
     if bad:
@@ -595,17 +604,7 @@ def global_norm_fn(cfg: LMConfig, mesh):
     """The global gradient norm of a sharded parameter tree, for the
     optimizers' `norm_fn`: each leaf's sum of squares divided by the ranks
     holding the same block, one sum over every rank."""
-    specs = param_logical_specs(cfg)
-
-    def norm(grads):
-        parts = []
-        tree_map(lambda g, spec: parts.append(
-            torch.sum(torch.square(g.float())) * (shard_count(
-                logical_to_spec(spec, mesh), mesh) / mesh.size)),
-            grads, specs)
-        return torch.sqrt(mesh.reduce(sum(parts), mesh.axis_names))
-
-    return norm
+    return sharded_norm_fn(param_logical_specs(cfg), mesh)
 
 
 class _Sharded:
@@ -623,6 +622,10 @@ class _Sharded:
         self.batch_split = batch_split        # the batch is split over dp
         self.lspec = param_logical_specs(cfg)["layers"][0] \
             if cfg.n_layers else {}
+        # KV heads a rank projects; with fewer KV heads than "model" ranks,
+        # `rep` ranks share each one
+        self.hkv = max(cfg.n_kv_heads // self.tp_n, 1)
+        self.rep = max(self.tp_n // cfg.n_kv_heads, 1)
 
     def use(self, w, logical, model_split: bool = False):
         """A parameter block ready to use: all-gathered over "data" on its
@@ -641,6 +644,25 @@ class _Sharded:
 
     def w(self, lp, name, model_split: bool = False):
         return self.use(lp[name], self.lspec[name], model_split)
+
+    def kv(self, lp, name):
+        """This rank's KV projection block of lp[name] (wk or wv): its own
+        columns; with `rep` > 1 the columns of the one KV head its query
+        heads use, all-gathered over "model" as FSDP gathers a layer (the
+        gradient is reduce-scattered back to each rank's columns)."""
+        w = self.w(lp, name)
+        if self.rep == 1:
+            return w
+        dh = self.cfg.head_dim
+        head = self.j // self.rep
+        return self.mesh.all_gather(w, self.tp, 1)[:, head * dh:
+                                                     (head + 1) * dh]
+
+    def kv_whole(self, t):
+        """Every KV head of this rank's (B, hkv, S, dh) k or v, gathered
+        over "model" (one copy of each head when ranks share them)."""
+        t = self.mesh.gather(t, self.tp, 1)
+        return t[:, ::self.rep] if self.rep > 1 else t
 
     def enter(self, x):
         """The residual stream into a TP region: the sequence all-gathered
@@ -678,9 +700,9 @@ def _sh_attention(xf, lp, sh: _Sharded, positions, impl):
     flash_attention kernel on them, then its rows of wo.  Returns (the
     partial sums over "model", the local heads' (k, v))."""
     cfg = sh.cfg
-    h, hkv = cfg.n_heads // sh.tp_n, cfg.n_kv_heads // sh.tp_n
-    q, k, v = _project_qkv(xf, sh.w(lp, "wq"), sh.w(lp, "wk"),
-                           sh.w(lp, "wv"), h, hkv, cfg, positions)
+    h = cfg.n_heads // sh.tp_n
+    q, k, v = _project_qkv(xf, sh.w(lp, "wq"), sh.kv(lp, "wk"),
+                           sh.kv(lp, "wv"), h, sh.hkv, cfg, positions)
 
     def attn(q, k, v):
         return ops.flash_attention(q, k, v, causal=True, impl=impl,
@@ -707,8 +729,11 @@ def _sh_moe(x2d, lp, sh: _Sharded):
     cfg, mesh = sh.cfg, sh.mesh
     mcfg, cdt = cfg.moe, cfg.compute_dtype
     E, k, tp = mcfg.n_experts, mcfg.top_k, sh.tp_n
-    split = not sh.batch_split and mesh.axis_size(sh.dp) > 1
-    if split:                     # tokens replicated over dp: take a block
+    dp = mesh.axis_size(sh.dp)
+    # tokens replicated over dp: take a block (tokens too few to split, as
+    # one sequence's decode step, run whole on every data shard)
+    split = not sh.batch_split and dp > 1 and x2d.shape[0] % dp == 0
+    if split:
         x2d = mesh.split(x2d, sh.dp, 0)
     t_loc, d = x2d.shape
     e_loc = E // tp
@@ -737,7 +762,7 @@ def _sh_moe(x2d, lp, sh: _Sharded):
         0, topi.reshape(-1), torch.ones(t_loc * k, device=x2d.device))
     counts = mesh.all_reduce(mesh.all_reduce(counts / tp, sh.tp), sh.dp)
     psum = mesh.all_reduce(mesh.all_reduce(probs.sum(0) / tp, sh.tp), sh.dp)
-    T = t_loc * mesh.axis_size(sh.dp)
+    T = t_loc * dp
     aux = E * torch.sum(counts / (T * k) * (psum / T))
     if split:
         y = mesh.all_gather(y, sh.dp, 0)
@@ -917,8 +942,7 @@ def _sh_prefill(params, tokens, cfg: LMConfig, max_len, impl, mesh):
     for l, lp in enumerate(params["layers"]):
         x, _, kv = _sh_layer(x, lp, sh, positions, impl)
         for name, t in zip(("k", "v"), kv):   # every head, this block's
-            cache[name][l, :, :, :n] = mesh.gather(t, sh.tp, 1)[
-                :, :, lo:lo + n]
+            cache[name][l, :, :, :n] = sh.kv_whole(t)[:, :, lo:lo + n]
     last = x[:, -1]
     if sh.sp:             # the last position is on the last model rank
         last = mesh.gather(last[:, None], sh.tp, 1)[:, -1]
@@ -972,14 +996,14 @@ def _sh_decode_step(params, cache, tokens, cfg: LMConfig, mesh):
     slot = min(pos, s_max - 1)
     lo = mesh.index(seq_axes) * s_loc
     mine = lo <= slot < lo + s_loc
-    h, hkv = cfg.n_heads // sh.tp_n, cfg.n_kv_heads // sh.tp_n
+    h = cfg.n_heads // sh.tp_n
     x = _sh_embed(params["embed"], tokens, sh, leave=False)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     for l, lp in enumerate(params["layers"]):
         xn = mesh.copy_to(rms_norm(x, sh.w(lp, "ln1")), sh.tp)
-        q, kx, vx = (mesh.gather(t, sh.tp, 1) for t in _project_qkv(
-            xn, sh.w(lp, "wq"), sh.w(lp, "wk"), sh.w(lp, "wv"), h, hkv, cfg,
-            positions))
+        q, kx, vx = _project_qkv(xn, sh.w(lp, "wq"), sh.kv(lp, "wk"),
+                                 sh.kv(lp, "wv"), h, sh.hkv, cfg, positions)
+        q, kx, vx = mesh.gather(q, sh.tp, 1), sh.kv_whole(kx), sh.kv_whole(vx)
         kc, vc = cache["k"][l], cache["v"][l]
         if mine:
             kc[:, :, slot - lo] = kx[:, :, 0].to(kc.dtype)

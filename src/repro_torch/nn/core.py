@@ -3,8 +3,9 @@
 function of tensors.
 
 The inits draw truncated normals on [-2, 2] from the caller's
-`torch.Generator`, on the generator's device: JAX's distribution, not its
-values.  Norms and rotary
+`torch.Generator`, on the generator's device unless `device` names another:
+JAX's distribution, not its values.  ``device="meta"`` gives the shapes
+and dtypes only (JAX's `jax.eval_shape` of an init).  Norms and rotary
 angles run in fp32 and cast back to the input's dtype, as in JAX.
 """
 from __future__ import annotations
@@ -15,27 +16,28 @@ import torch
 import torch.nn.functional as F
 
 
-def _truncated_normal(generator, shape) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2] (not rescaled), fp32, on the
-    generator's device."""
-    out = torch.empty(shape, dtype=torch.float32, device=generator.device)
+def _truncated_normal(generator, shape, device=None) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (not rescaled), fp32, on
+    `device` (default: the generator's)."""
+    out = torch.empty(shape, dtype=torch.float32,
+                      device=generator.device if device is None else device)
     return torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
                                        generator=generator)
 
 
 def dense_init(generator, in_dim: int, out_dim: int, dtype=torch.float32,
-               scale: float | None = None) -> torch.Tensor:
+               scale: float | None = None, device=None) -> torch.Tensor:
     """(in_dim, out_dim) weights: truncated normal times `scale` (default
     1/sqrt(in_dim)), drawn in fp32 and cast to `dtype`."""
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return (_truncated_normal(generator, (in_dim, out_dim))
+    return (_truncated_normal(generator, (in_dim, out_dim), device)
             .mul_(scale).to(dtype))
 
 
-def embed_init(generator, vocab: int, dim: int,
-               dtype=torch.float32) -> torch.Tensor:
+def embed_init(generator, vocab: int, dim: int, dtype=torch.float32,
+               device=None) -> torch.Tensor:
     """(vocab, dim) embedding rows: truncated normal, cast to `dtype`."""
-    return _truncated_normal(generator, (vocab, dim)).to(dtype)
+    return _truncated_normal(generator, (vocab, dim), device).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):

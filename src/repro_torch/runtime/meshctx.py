@@ -32,7 +32,9 @@ takes device tensors; gloo moves host memory, so with a gloo group and
 tensors on a device every collective copies them to the host and back
 explicitly (bfloat16 is summed in fp32 there), and the same code runs on
 gloo ranks sharing one card and on NCCL ranks, one card each.  The backend
-is the caller's choice; nothing falls back.
+is the caller's choice; nothing falls back.  Every collective adds its
+result-shape bytes on this rank to the active `_meta.counting` under
+JAX's names (a reduce-scatter by its block, whatever gloo runs for it).
 """
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import _meta
 from repro_torch._device import resolve_device
+from repro_torch.tree import tree_map
 
 LOGICAL_AXES = {
     "dp": ("pod", "data"),
@@ -168,6 +172,7 @@ class Mesh:
             return x
         w = self._wire(x)
         out = torch.empty(n * w.numel(), dtype=w.dtype, device=w.device)
+        _meta.add_collective("all-gather", n * _meta.nbytes(x))
         dist.all_gather_into_tensor(out, w, group=self.group(axes))
         out = self._unwire(out, x, (n,) + tuple(x.shape))
         return torch.cat(out.unbind(0), dim)
@@ -182,18 +187,23 @@ class Mesh:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                              f"into {n} blocks")
         i, c = self.index(axes), x.shape[dim] // n
+        _meta.add_collective("reduce-scatter", _meta.nbytes(x) // n)
         if self.backend == "nccl":
             w = x.movedim(dim, 0).contiguous()
             out = torch.empty((c,) + tuple(w.shape[1:]), dtype=w.dtype,
                               device=w.device)
             dist.reduce_scatter_tensor(out, w, group=self.group(axes))
             return out.movedim(0, dim)
-        return self.reduce(x, axes).narrow(dim, i * c, c)
+        return self._reduce(x, axes, dist.ReduceOp.SUM).narrow(dim, i * c, c)
 
     def reduce(self, x: torch.Tensor, axes, op=dist.ReduceOp.SUM):
         """`x` reduced over `axes` with `op` (SUM, MAX, MIN)."""
         if self.axis_size(axes) == 1:
             return x
+        _meta.add_collective("all-reduce", _meta.nbytes(x))
+        return self._reduce(x, axes, op)
+
+    def _reduce(self, x, axes, op):
         w = self._wire(x, reduce=True)
         if w.data_ptr() == x.data_ptr():
             w = w.clone()
@@ -378,3 +388,19 @@ def constrain(x, *logical):
     if mesh is None:
         return x
     return local_block(x, logical_to_spec(logical, mesh), mesh)
+
+
+def sharded_norm_fn(specs, mesh):
+    """The global norm of a gradient tree sharded under the logical `specs`
+    (a tree of the same structure) on `mesh`, for the optimizers'
+    `norm_fn`: each leaf's sum of squares divided by the ranks holding the
+    same block, one sum over every rank."""
+    def norm(grads):
+        parts = []
+        tree_map(lambda g, spec: parts.append(
+            torch.sum(torch.square(g.float())) * (shard_count(
+                logical_to_spec(spec, mesh), mesh) / mesh.size)),
+            grads, specs)
+        return torch.sqrt(mesh.reduce(sum(parts), mesh.axis_names))
+
+    return norm

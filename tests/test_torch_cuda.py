@@ -1276,3 +1276,33 @@ def test_mesh_shard_map_moe_on_two_ranks_equals_local(mesh_ranks):
     (y, aux), (wy, waux) = got["moe"], want["moe"]
     _close(y, wy, 1e-5)
     assert abs(aux - waux) <= 1e-6
+
+
+def test_counting_mode_still_launches_the_kernels(cuda):
+    """Under the dry run's counting (`_meta.counting`), a CUDA call of each
+    kernel through `kernels.ops` launches it (its counter moves) and the
+    meta branch is never taken (no kernel is counted there)."""
+    from repro_torch import _meta
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    order = torch.randperm(6 * 7 * 8, generator=gen, device=cuda).to(
+        torch.int32).reshape(6, 7, 8)
+    q = torch.randn(1, 4, 64, 64, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(1, 2, 64, 64, generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+    table = torch.randn(100, 32, generator=gen, device=cuda)
+    ids = torch.randint(-1, 100, (8, 5), generator=gen, device=cuda)
+    mods = (kmod, steepest_mod, bpc_mod, flash_mod, bag_mod)
+    for mod in mods:
+        for k in mod.launches:
+            mod.launches[k] = 0
+    with _meta.counting() as counts:
+        ops.fused_local_phase(order, 6)
+        ops.steepest_neighbor(order, 6)
+        ops.block_pathcompress(order.reshape(-1).clone(), 2, 64)
+        ops.flash_attention(q, kv, kv, causal=True)
+        ops.embedding_bag(table, ids)
+        torch.cuda.synchronize()
+    assert counts.kernel_calls == {} and counts.kernel_flops == 0
+    for mod in mods:
+        assert sum(mod.launches.values()) >= 1, mod.__name__

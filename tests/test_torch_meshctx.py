@@ -146,8 +146,11 @@ class _TP:
 def test_check_mesh_names_what_does_not_split():
     cfg = pconfigs.get("llama3.2-1b").smoke_config()      # 16/4 heads
     plm.check_mesh(cfg, _TP(4, 2))
-    with pytest.raises(ValueError, match="n_kv_heads = 4"):
-        plm.check_mesh(cfg, _TP(8))
+    # fewer KV heads than "model" ranks: each rank takes the one it uses
+    plm.check_mesh(cfg, _TP(8))
+    six = dataclasses.replace(cfg, n_heads=24, n_kv_heads=6)
+    with pytest.raises(ValueError, match="n_kv_heads = 6"):
+        plm.check_mesh(six, _TP(8))
     with pytest.raises(ValueError, match="d_model = 64"):
         plm.check_mesh(cfg, _TP(1, 3))
     plm.check_mesh(dataclasses.replace(cfg, fsdp=False), _TP(1, 3))

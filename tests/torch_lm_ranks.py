@@ -24,7 +24,22 @@ records, under the names of `CASES`:
   launch/<arch>            `launch.train.main` on the 8 ranks from JAX's
                            weights (deepseek through a chaos restart):
                            eval loss and report;
-  meshes                   `launch.mesh`'s layouts and errors on 8 ranks.
+  meshes                   `launch.mesh`'s layouts and errors on 8 ranks;
+  kv                       one sharded AdamW step of the llama3.2-1b smoke
+                           config on mesh (1, 8): 8 "model" ranks over 4
+                           KV heads; the loss, the gradients and the
+                           updated parameters gathered whole, and this
+                           rank's unsharded step;
+  bst                      BST's smoke config on (2, 4) from JAX's weights:
+                           logits gathered over the data shards, the loss
+                           and its gradients gathered whole, retrieval of
+                           800 candidates split over "data"; and the same
+                           unsharded on this rank;
+  gnn/<arch>               each GNN smoke config on (2, 4), the batch's
+                           arrays split into 8 blocks (`gnn.shard_batch`):
+                           the output (node outputs gathered), the loss,
+                           the gradients (whole on every rank); and the
+                           same unsharded on this rank.
 """
 import dataclasses
 import os
@@ -44,6 +59,7 @@ COMBOS = ((True, True), (True, False), (False, True), (False, False))
 LAUNCH = {"llama3.2-1b": ((4, 2), False), "deepseek-moe-16b": (None, True)}
 LAUNCH_ARGS = dict(steps=12, batch=4, seq=16, lr=3e-3, ckpt_every=5)
 LR = 1e-3
+GNN_ARCHS = ("gat_cora", "schnet", "meshgraphnet", "dimenet")
 
 
 def lm_test_config():
@@ -78,7 +94,92 @@ def _step(params, batch, cfg, mesh):
         loss.backward()
         grads = tree_map(lambda t: t.grad, leaves)
         new, state, _ = opt.update(grads, state, local)
-    return float(loss), local, new, state
+    return float(loss), local, new, state, grads
+
+
+def kv_config():
+    """llama3.2-1b's smoke config: 4 KV heads, fewer than 8 "model"
+    ranks."""
+    import repro_torch.configs as configs
+    return configs.get("llama3.2-1b").smoke_config()
+
+
+def _step_unsharded(params, batch, cfg):
+    """The same AdamW step on this rank, no mesh: (loss, new params,
+    gradients)."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    opt = adamw(LR)
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    loss, _ = lm.loss_fn(leaves, batch, cfg)
+    loss.backward()
+    grads = tree_map(lambda t: t.grad, leaves)
+    new, _, _ = opt.update(grads, opt.init(params), params)
+    return float(loss), new, grads
+
+
+def _loss_grads(loss_fn, params, batch, mesh):
+    """(loss, aux, gradients) of `loss_fn` on the leaves of `params`, under
+    `mesh` when one is given."""
+    import contextlib
+    from repro_torch.runtime.meshctx import use_mesh
+    from repro_torch.tree import tree_map
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        loss, aux = loss_fn(leaves, batch)
+    loss.backward()
+    return float(loss), {k: float(v) for k, v in aux.items()}, tree_map(
+        lambda t: t.grad, leaves)
+
+
+def _bst(inp, mesh):
+    """Sharded BST on `mesh` and the same unsharded on this rank."""
+    from repro_torch import configs
+    from repro_torch.models import bst
+    from repro_torch.runtime.meshctx import use_mesh
+    cfg = configs.get("bst").smoke_config()
+    params, batch, retr = inp["bst_params"], inp["bst_batch"], inp[
+        "bst_retrieval"]
+    local = bst.shard_params(params, cfg, mesh)
+    lb = {k: mesh.block(v, ("data",), 0) for k, v in batch.items()}
+    lr = dict(retr, candidates=mesh.block(retr["candidates"], ("data",), 1))
+    with use_mesh(mesh):
+        logits = mesh.gather(bst.forward(local, lb, cfg), ("data",), 0)
+        vals, ids = bst.retrieval_step(local, lr, cfg, top_k=100)
+    loss, aux, grads = _loss_grads(lambda p, b: bst.loss_fn(p, b, cfg),
+                                   local, lb, mesh)
+    one = _loss_grads(lambda p, b: bst.loss_fn(p, b, cfg), params, batch,
+                      None)
+    return {"logits": logits, "loss": loss, "acc": aux["acc"],
+            "grads": bst.unshard_params(grads, cfg, mesh),
+            "retrieval": (vals, ids),
+            "one": {"logits": bst.forward(params, batch, cfg),
+                    "loss": one[0], "grads": one[2],
+                    "retrieval": bst.retrieval_step(params, retr, cfg,
+                                                    top_k=100)}}
+
+
+def _gnn(arch, inp, mesh):
+    """Sharded GNN on `mesh` (every array split over the 8 ranks) and the
+    same unsharded on this rank."""
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.runtime.meshctx import use_mesh
+    cfg = configs.get(arch).smoke_config()
+    params, batch = inp[f"gnn_params/{arch}"], inp[f"gnn_batch/{arch}"]
+    local = gnn.shard_batch(batch, mesh)
+    with use_mesh(mesh):
+        out = gnn.apply(params, local, cfg)
+    if out.shape[0] != gnn.apply(params, batch, cfg).shape[0]:
+        out = mesh.gather(out, mesh.axis_names, 0)     # node outputs
+    loss, aux, grads = _loss_grads(lambda p, b: gnn.loss_fn(p, b, cfg),
+                                   params, local, mesh)
+    one = _loss_grads(lambda p, b: gnn.loss_fn(p, b, cfg), params, batch,
+                      None)
+    return {"out": out, "loss": loss, "aux": aux, "grads": grads,
+            "one": {"out": gnn.apply(params, batch, cfg), "loss": one[0],
+                    "aux": one[1], "grads": one[2]}}
 
 
 def main(rank, world, store, out_dir):
@@ -136,7 +237,7 @@ def main(rank, world, store, out_dir):
         cfg = dataclasses.replace(cfg0, fsdp=fsdp, seq_shard=sp)
 
         def step(cfg=cfg):
-            loss, local, new, state = _step(params, batch, cfg, mesh)
+            loss, local, new, state, _ = _step(params, batch, cfg, mesh)
             whole = lm.unshard_params(new, cfg, mesh)
             full = {}
             tree_map_with_names(lambda n, t: full.__setitem__(n, t),
@@ -201,6 +302,20 @@ def main(rank, world, store, out_dir):
 
     if "_state" in out:
         case("ckpt", ckpt)
+
+    def kv():
+        cfg = kv_config()
+        kmesh = Mesh((1, WORLD), ("data", "model"), cpu)
+        kb = {"tokens": inp["kv_tokens"], "labels": inp["kv_tokens"]}
+        loss, _, new, _, grads = _step(inp["kv_params"], kb, cfg, kmesh)
+        one = _step_unsharded(inp["kv_params"], kb, cfg)
+        return {"loss": loss, "params": lm.unshard_params(new, cfg, kmesh),
+                "grads": lm.unshard_params(grads, cfg, kmesh), "one": one}
+
+    case("kv", kv)
+    case("bst", lambda: _bst(inp, mesh))
+    for arch in GNN_ARCHS:
+        case(f"gnn/{arch}", lambda arch=arch: _gnn(arch, inp, mesh))
 
     for arch, (mesh_shape, chaos) in LAUNCH.items():
         def launch(arch=arch, mesh_shape=mesh_shape, chaos=chaos):
